@@ -49,7 +49,7 @@ print("grid argmax action_cost:", float(costs[int(jnp.argmax(lls))]),
       "(true 0.5)")
 
 # --- 4. NUTS posterior (shorter horizon so the example is quick on CPU;
-# on a TPU the full T=1000 dataset is fine) ---
+# on a GPU the full T=1000 dataset is fine) ---
 x_inf = BoundedActor(T=300, action_cost=0.5,
                      sigma_target=6.0).simulate(random.PRNGKey(2), n=10)
 mcmc = infer(x_inf, num_samples=150, num_warmup=150,

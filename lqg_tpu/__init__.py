@@ -1,6 +1,6 @@
-"""lqg_tpu: a TPU-native LQG control & inverse optimal control framework.
+"""lqg_tpu: an accelerator-native LQG control & inverse optimal control framework.
 
-A from-scratch, TPU-first implementation of the capabilities of the reference
+A from-scratch, batch-first JAX implementation of the capabilities of the reference
 ``lqg`` library (inverse optimal control for continuous psychophysics,
 Straub & Rothkopf 2022): finite-horizon LQG forward models (Riccati/LQR
 backward recursion, Kalman-filter forward pass, closed-loop rollout with

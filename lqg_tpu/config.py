@@ -1,12 +1,13 @@
-"""Precision policy and numerical debugging utilities.
+"""Precision policy, compile cache and numerical debugging utilities.
 
 SURVEY.md section 5.6: the reference leaves precision implicit (f32
 everywhere except a stale global x64 switch in ``lqg/optim.py:9-11``).  Here
 precision is an explicit policy:
 
-* matmul precision inside every recursion is pinned to ``"highest"``
-  (full-f32 passes) - TPU's default bf16-pass matmuls compound to
-  percent-level gain error over T=1000 Riccati steps;
+* matmul precision on the likelihood/potential path is pinned to
+  ``"highest"`` (full-f32 products): a GPU may otherwise run f32 matmuls
+  in TF32 (~3 decimal digits), which compounds to percent-level gain error
+  over T=1000 Riccati steps;
 * ``enable_x64`` is an opt-in context, not an import side effect;
 * NaN debugging and conditioning checks are first-class helpers.
 """
@@ -14,6 +15,7 @@ precision is an explicit policy:
 from __future__ import annotations
 
 import contextlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,13 +23,32 @@ import jax.numpy as jnp
 
 @contextlib.contextmanager
 def enable_x64(enable: bool = True):
-    """Temporarily toggle float64 (useful on CPU; TPUs emulate f64 slowly)."""
+    """Temporarily toggle float64 (for tight oracle comparisons)."""
     prev = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", enable)
     try:
         yield
     finally:
         jax.config.update("jax_enable_x64", prev)
+
+
+def use_compile_cache() -> str:
+    """Keep JAX's persistent compile cache where runs can find it again.
+
+    With ``JAX_COMPILATION_CACHE_DIR`` set, JAX already uses that directory
+    and nothing else is set; otherwise the cache goes to ``.jax_cache/`` at
+    the root of the checkout (a fixed path: the path is part of the cache
+    key).  Returns the directory in use.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return path
 
 
 @contextlib.contextmanager

@@ -77,15 +77,16 @@ def ess(x) -> float:
     return float(min(m * n / tau, m * n * np.log10(max(m * n, 10))))
 
 
-def summary(samples: dict, group_by_chain=True):
+_COLUMNS = ("mean", "sd", "median", "q5", "q95", "n_eff", "r_hat")
+
+
+def summary(samples: dict, group_by_chain=True) -> dict:
     """Posterior summary table.
 
     ``samples``: dict name -> (chains, draws) (or (draws,) when
-    ``group_by_chain=False``).  Returns a pandas DataFrame with mean, sd,
-    quantiles, ESS and split-R-hat.
+    ``group_by_chain=False``).  Returns ``{name: {column: float}}`` with
+    columns mean, sd, median, q5, q95, n_eff and r_hat (split-R-hat).
     """
-    import pandas as pd
-
     rows = {}
     for name, vals in samples.items():
         v = np.asarray(vals, dtype=np.float64)
@@ -93,12 +94,23 @@ def summary(samples: dict, group_by_chain=True):
             v = v.reshape(1, -1)
         flat = v.reshape(-1)
         rows[name] = dict(
-            mean=flat.mean(),
-            sd=flat.std(ddof=1) if flat.size > 1 else np.nan,
-            median=np.median(flat),
-            q5=np.quantile(flat, 0.05),
-            q95=np.quantile(flat, 0.95),
+            mean=float(flat.mean()),
+            sd=float(flat.std(ddof=1)) if flat.size > 1 else np.nan,
+            median=float(np.median(flat)),
+            q5=float(np.quantile(flat, 0.05)),
+            q95=float(np.quantile(flat, 0.95)),
             n_eff=ess(v),
             r_hat=split_rhat(v),
         )
-    return pd.DataFrame(rows).T
+    return rows
+
+
+def format_summary(table: dict) -> str:
+    """Render a :func:`summary` table as aligned text, one row per
+    parameter."""
+    width = max([len(n) for n in table] + [4])
+    lines = [" " * width + "".join(f"{c:>10s}" for c in _COLUMNS)]
+    for name, row in table.items():
+        lines.append(f"{name:<{width}s}"
+                     + "".join(f"{row[c]:10.3f}" for c in _COLUMNS))
+    return "\n".join(lines)

@@ -12,7 +12,7 @@ Free parameters are auto-discovered from model constructor signatures exactly
 like the reference (``lqg/infer/models.py:9-17``), with the same exclusion
 list.
 
-TPU-first difference: the hierarchical multi-condition model evaluates all
+Difference from the reference: the hierarchical multi-condition model evaluates all
 conditions in ONE vmapped graph (the reference loops over conditions in
 Python, ``models.py:117-130`` - its documented scaling weakness).
 """
@@ -115,8 +115,10 @@ class ProbModel:
         return self.log_prior(params) + ljac + self.log_likelihood(params)
 
     def potential(self, u: jnp.ndarray) -> jnp.ndarray:
-        """Negative log joint - the NUTS/SVI objective."""
-        return -self.log_joint_unconstrained(u)
+        """Negative log joint - the NUTS/SVI objective (every f32 product
+        at full precision: no TF32)."""
+        with jax.default_matmul_precision("highest"):
+            return -self.log_joint_unconstrained(u)
 
 
 def _float(v):

@@ -1,7 +1,7 @@
 """Model zoo: concrete tracking-experiment models.
 
 Mirrors the reference model zoo (``lqg/tracking/``) plus the notebook-only
-hand-motion model, built on stationary specs for TPU efficiency.
+hand-motion model, built on stationary specs (no time-stacked matrices).
 """
 
 from lqg_tpu.models.basic import (

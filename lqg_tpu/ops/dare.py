@@ -7,8 +7,8 @@ geometrically, so for long horizons the gain schedules are constant except
 for boundary transients.  The structure-preserving doubling algorithm (SDA)
 squares the recursion: iterate k gives the value function after 2^k steps,
 so fixed points arrive in ~10-20 iterations independent of T - an O(log)
-replacement for the O(T) scan, and on TPU a few dozen small matmul rounds
-instead of a long sequential dependency chain.
+replacement for the O(T) scan: a few dozen small matmul rounds instead of
+a long sequential dependency chain.
 
 SDA for the DARE ``S = Q + A^T S (I + G S)^{-1} A`` with ``G = B R^{-1} B^T``:
 

@@ -6,7 +6,7 @@ joint linear-Gaussian system; conditioning on the observed state dims at each
 step and marginalizing the belief yields a closed-form Gaussian likelihood of
 the observed trajectories.
 
-TPU-first redesign (the #1 hot path, see SURVEY.md section 3.2):
+Redesign of the hot path (see SURVEY.md section 3.2):
 
 The reference recomputes the full ``(j, j)`` covariance recursion *per trial*
 inside a ``vmap`` (``system.py:241``).  But the covariance recursion is
@@ -18,12 +18,12 @@ therefore split the computation:
    the Cholesky factors of the innovation covariances.
 2. :func:`trial_log_likelihood` - per-trial work is a batched affine scan
    ``mu' = M_t mu + J_t x_t`` with trials packed into the trailing matrix
-   dimension, so each scan step is a real ``(j, j) @ (j, n)`` matmul feeding
-   the MXU, followed by fully parallel triangular solves for the quadratic
+   dimension, so each scan step is a real ``(j, j) @ (j, n)`` matmul,
+   followed by fully parallel triangular solves for the quadratic
    forms.
 
 This drops per-likelihood cost from ``O(n T j^3)`` to ``O(T j^3 + n T j d)``
-and turns the trial axis into MXU work.
+and turns the trial axis into matmul width.
 
 The observed data dims must be the FIRST ``obs_dim`` entries of the joint
 state - the same convention as the reference (``system.py:210-233``); model
@@ -207,7 +207,7 @@ def trial_log_likelihood(kernel: ConditionalKernel, x: jnp.ndarray) -> jnp.ndarr
         axis into the event).
 
     Trials ride in the trailing matrix dimension so each scan step is a
-    ``(j, j) @ (j, n)`` matmul (MXU work), and the quadratic forms are batched
+    ``(j, j) @ (j, n)`` matmul, and the quadratic forms are batched
     triangular solves, fully parallel over ``(T, n)``.
     """
     M, J, chols, logdet_score = kernel

@@ -8,7 +8,7 @@ recursion producing the time series of Kalman gains
     K  = P F^T G^{-1}               (gain)
     P <- (I - K F) P                (update)
 
-TPU-first differences: batch-first einsums over arbitrary leading axes, a
+Differences from the reference: batch-first einsums over arbitrary leading axes, a
 Cholesky solve instead of the reference's explicit ``jnp.linalg.inv``
 (``kf.py:12``), and stationary-spec support (no ``(T, n, n)`` stacks in HBM).
 """
@@ -67,8 +67,8 @@ def forward(
     # stationary specs carry no time axis: A has the same rank as Qf
     stationary = spec.A.ndim == spec.Qf.ndim
 
-    # full-f32 matmuls: TPU default matmul precision compounds over long
-    # covariance recursions (see lqg_tpu.ops.riccati)
+    # full-f32 matmuls: reduced-precision (TF32) products compound over
+    # long covariance recursions (see lqg_tpu.ops.riccati)
     with jax.default_matmul_precision("highest"):
         if stationary:
             if horizon is None:

@@ -4,8 +4,8 @@ The LQG state dims here are tiny (2-40), so the cost model is dominated by
 fusion and batching, not per-matrix FLOPs.  Everything takes arbitrary leading
 batch axes and uses Cholesky-based solves (the reference uses
 ``jnp.linalg.inv`` at ``lqg/belief/kf.py:12`` and ``eigh`` clamps at
-``lqg/control/lqr.py:27-28``; Cholesky is both faster and better conditioned on
-TPU, and avoids the non-differentiability of ``eigh`` at degenerate spectra).
+``lqg/control/lqr.py:27-28``; Cholesky is both faster and better conditioned,
+and avoids the non-differentiability of ``eigh`` at degenerate spectra).
 """
 
 from __future__ import annotations

@@ -1,31 +1,33 @@
-"""Fused Pallas TPU kernels: Riccati backward + Kalman forward gains.
+"""Fused Pallas kernels (Triton route): Riccati backward + Kalman forward gains.
 
-The hot solve of the framework (SURVEY.md section 6: the solves/s
-north-star) is thousands of *tiny* (n <= 8) LQG problems batched per chip.
-The XLA path scans over T with batched einsums - every step round-trips the
-carry and the per-step outputs through HBM and pays per-step launch
-overhead.  These kernels keep the recursion resident on-chip:
+The gains are thousands of *tiny* (n <= 4) LQG problems: each step of the
+XLA scan (:mod:`lqg_tpu.ops.riccati`, :mod:`lqg_tpu.ops.kalman`) is a chain
+of small dependent matrix ops, and on a GPU every step of a ``lax.scan``
+pays its own kernel launches.  These kernels run the whole horizon inside
+one program instead:
 
-* **Layout**: parameter particles fill a full VPU tile - 8 sublanes x 128
-  lanes = 1024 particles per block; the n x n matrix elements are unrolled
-  as separate tiles.  Every matrix product is a handful of elementwise FMAs
-  on (8, 128) tiles, at full vector-unit utilization.
-* **Time-chunked grid**: the horizon is processed in chunks with the
-  Riccati/covariance carry living in VMEM scratch across grid steps, so
-  VMEM holds only one chunk of the output schedule at a time.
+* **Layout**: parameter particles are the lanes of a 1-D block
+  (``lanes``, a power of two); the n x n matrix elements are unrolled as
+  separate lane vectors, so every matrix product is straight-line FMA code
+  on registers.  The grid covers only the particle batch.
+* **Time loop in-program**: a ``fori_loop`` over all of T carries the
+  Riccati and covariance recursions in values (registers); each step's
+  gains are stored at a dynamic time index.
 * **Closed-form small inverses**: control dims m <= 2 and observation dims
-  p <= 3 use explicit symmetric inverses (no Cholesky/LAPACK inside the
-  kernel).
+  p <= 3 use explicit symmetric inverses (no factorization in the kernel).
 
 Both recursions (Riccati backward for L, Kalman forward for K) run in ONE
-kernel - they are independent, so both carries share the fori_loop, with
-L/H streaming to the reverse-time block of each grid chunk and K forward.
+kernel - they are independent, so both carries share the loop, L/H
+streaming to reverse-time slots and K forward.
 
 Scope: stationary (time-invariant) specs with zero affine cost terms -
 exactly the shape of every model in the zoo.  The general/stacked path
-falls back to :mod:`lqg_tpu.ops.riccati` / :mod:`lqg_tpu.ops.kalman`.
-Gradients: :func:`gains_fused` wraps the kernel in a custom VJP that
-differentiates the associative-scan twin (O(log T) backward depth).
+stays on :mod:`lqg_tpu.ops.riccati` / :mod:`lqg_tpu.ops.kalman`.
+Gradients: :func:`gains_fused` wraps the kernel in a custom VJP whose
+backward pass is the analytic adjoint kernel (:func:`_gains_adjoint_kernel`).
+
+Every entry point takes ``interpret``: ``True`` runs the kernels in the
+Pallas interpreter (CPU tests); the default compiles them for the GPU.
 """
 
 from __future__ import annotations
@@ -36,15 +38,17 @@ from typing import Sequence
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from lqg_tpu.spec import LQGSpec
 
-SUB = 8     # sublanes per block
-LANE = 128  # lanes per block
-BLOCK = SUB * LANE  # particles per grid block
+# particles per program (a power of two) and warps per program: the best
+# of the measured 32/1, 64/1, 64/2, 128/1, 128/2, 128/4 at B=16384, T=1000
+# on an H100 (PERF.md)
+LANES = 128
+NUM_WARPS = 4
 
-# --- tiny-matrix algebra on lists of (SUB, LANE)-tile elements ---
+# --- tiny-matrix algebra on lists of lane vectors (or scalars) ---
 
 
 def _mat(rows: Sequence, n: int, m: int):
@@ -99,18 +103,16 @@ def _sym_inv(A, eps):
     rows, n, m = A
     assert n == m <= 3
     if n == 1:
-        return _mat([pl.reciprocal(rows[0] + eps, approx=False)], 1, 1)
+        return _mat([1.0 / (rows[0] + eps)], 1, 1)
     if n == 2:
         a, b, _, d = rows
-        det = a * d - b * b
-        inv = pl.reciprocal(det + eps, approx=False)
+        inv = 1.0 / (a * d - b * b + eps)
         return _mat([d * inv, -b * inv, -b * inv, a * inv], 2, 2)
     a, b, c, _, e, f, _, _, i = rows  # symmetric: use upper triangle
     A11 = e * i - f * f
     A12 = c * f - b * i
     A13 = b * f - c * e
-    det = a * A11 + b * A12 + c * A13
-    inv = pl.reciprocal(det + eps, approx=False)
+    inv = 1.0 / (a * A11 + b * A12 + c * A13 + eps)
     A22 = a * i - c * c
     A23 = b * c - a * f
     A33 = a * e - b * b
@@ -120,60 +122,59 @@ def _sym_inv(A, eps):
 
 
 def _read(ref, n: int, m: int):
+    """(n, m) matrix from the leading rows of a (rows, lanes) block."""
     return _mat([ref[i] for i in range(n * m)], n, m)
-
-
-def _read_scratch(ref, n: int, m: int):
-    return _mat([ref[i] for i in range(n * m)], n, m)
-
-
-def _write_scratch(ref, M):
-    rows, n, m = M
-    for i in range(n * m):
-        ref[i] = rows[i]
-
-
-def _write_t(ref, t, M):
-    rows, n, m = M
-    for i in range(n * m):
-        ref[t, i] = rows[i]
 
 
 def _read_t(ref, t, n: int, m: int):
     return _mat([ref[t, i] for i in range(n * m)], n, m)
 
 
+def _write_t(ref, t, M):
+    rows, n, m = M
+    for i in range(n * m):
+        ref[t, i] = jnp.broadcast_to(rows[i], ref.shape[-1:])
+
+
+def _write(ref, M):
+    rows, n, m = M
+    for i in range(n * m):
+        ref[i] = jnp.broadcast_to(rows[i], ref.shape[-1:])
+
+
+def pallas_gpu_call(kernel, *, grid, in_specs, out_specs, out_shape,
+                    interpret, num_warps, name=None):
+    """``pallas_call`` on the Triton route, or in the interpreter when the
+    caller asks for it."""
+    return pl.pallas_call(
+        kernel, grid=grid, in_specs=in_specs, out_specs=out_specs,
+        out_shape=out_shape, interpret=interpret, name=name,
+        compiler_params=None if interpret else plt.CompilerParams(
+            num_warps=num_warps, num_stages=1))
+
+
 # --- kernels ---
 
 
-def _gains_merged_kernel(*refs, n, m, p, T, tc, eps, unroll=1,
-                         emit_stores=False):
-    """Riccati backward AND Kalman forward in ONE kernel.
+def _gains_kernel(*refs, n, m, p, T, eps, emit_stores=False):
+    """Riccati backward AND Kalman forward in ONE program per lane block.
 
     The two recursions are independent (control gains come from the
     backward cost-to-go pass, estimator gains from the forward covariance
-    pass), so both carries ride the same fori_loop: the Riccati carry
-    writes its outputs at the reverse-time slot of the chunk while the
-    Kalman carry writes forward.  One launch + one T-loop instead of two -
-    at small batch the gains are LATENCY-bound (measured 7.2 ms as two
-    kernels at T=1000; the op mix per step is unchanged, the second
-    traversal of the time axis is eliminated).
+    pass), so both carries ride the same loop: the Riccati carry writes its
+    outputs at the reverse-time slot while the Kalman carry writes forward.
 
     With ``emit_stores`` the per-step carries (Riccati ``S_t`` entering the
     step that emits ``L_t``, Kalman ``P_t`` entering the predict) stream to
     two extra outputs - the residues :func:`_gains_adjoint_kernel` needs.
-    The store-free variant stays the primal (no extra HBM write traffic on
-    the throughput-bound full-batch solve path).
     """
     if emit_stores:
         (A_ref, B_ref, Q_ref, R_ref, Qf_ref, F_ref, VV_ref, WW_ref,
-         Sigma0_ref, L_ref, H_ref, K_ref, Sst_ref, Pst_ref,
-         S_scr, P_scr) = refs
+         Sigma0_ref, L_ref, H_ref, K_ref, Sst_ref, Pst_ref) = refs
     else:
         (A_ref, B_ref, Q_ref, R_ref, Qf_ref, F_ref, VV_ref, WW_ref,
-         Sigma0_ref, L_ref, H_ref, K_ref, S_scr, P_scr) = refs
+         Sigma0_ref, L_ref, H_ref, K_ref) = refs
         Sst_ref = Pst_ref = None
-    c = pl.program_id(1)
 
     A = _read(A_ref, n, n)
     Bm = _read(B_ref, n, m)
@@ -186,15 +187,10 @@ def _gains_merged_kernel(*refs, n, m, p, T, tc, eps, unroll=1,
     Bt = _transpose(Bm)
     Ft = _transpose(F)
 
-    @pl.when(c == 0)
-    def _():
-        _write_scratch(S_scr, _read(Qf_ref, n, n))
-        _write_scratch(P_scr, _read(Sigma0_ref, n, n))
-
     def step(i, carry):
         S_rows, P_rows = carry
 
-        # --- Riccati backward (chunk-local reverse slot tt) ---
+        # --- Riccati backward (reverse slot tt) ---
         S = _mat(list(S_rows), n, n)
         SB = _matmul(S, Bm)
         SA = _matmul(S, A)
@@ -207,13 +203,13 @@ def _gains_merged_kernel(*refs, n, m, p, T, tc, eps, unroll=1,
         S_new = _add(_add(Q, _matmul(At, SA)),
                      _add(_matmul(Lt_, HL),
                           _add(_matmul(Lt_, G), _matmul(_transpose(G), L))))
-        tt = tc - 1 - i
+        tt = T - 1 - i
         _write_t(L_ref, tt, L)
         _write_t(H_ref, tt, H)
         if Sst_ref is not None:
             _write_t(Sst_ref, tt, S)
 
-        # --- Kalman forward (chunk-local forward slot i) ---
+        # --- Kalman forward (slot i) ---
         P = _mat(list(P_rows), n, n)
         if Pst_ref is not None:
             _write_t(Pst_ref, i, P)
@@ -227,30 +223,26 @@ def _gains_merged_kernel(*refs, n, m, p, T, tc, eps, unroll=1,
 
         return (tuple(S_new[0]), tuple(P_new[0]))
 
-    carry0 = (tuple(_read_scratch(S_scr, n, n)[0]),
-              tuple(_read_scratch(P_scr, n, n)[0]))
-    S_fin, P_fin = jax.lax.fori_loop(0, tc, step, carry0, unroll=unroll)
-    _write_scratch(S_scr, _mat(list(S_fin), n, n))
-    _write_scratch(P_scr, _mat(list(P_fin), n, n))
+    carry0 = (tuple(_read(Qf_ref, n, n)[0]),
+              tuple(_read(Sigma0_ref, n, n)[0]))
+    jax.lax.fori_loop(0, T, step, carry0)
 
 
 def _gains_adjoint_kernel(A_ref, B_ref, R_ref, F_ref, VV_ref, WW_ref,
                           Sst_ref, Pst_ref, Lbar_ref, Hbar_ref, Kbar_ref,
                           Abar_ref, Bbar_ref, Qbar_ref, Rbar_ref, Qfbar_ref,
                           Fbar_ref, VVbar_ref, WWbar_ref, S0bar_ref,
-                          Sb_scr, Pb_scr, Aacc_scr, Bacc_scr, Qacc_scr,
-                          Racc_scr, Facc_scr, Vacc_scr, Wacc_scr,
-                          *, n, m, p, T, tc, eps):
-    """Analytic adjoint of :func:`_gains_merged_kernel` - ONE kernel.
+                          *, n, m, p, T, eps):
+    """Analytic adjoint of :func:`_gains_kernel` - ONE program per lane block.
 
     Reverse-mode of the Riccati backward pass runs FORWARD in time (its
     primal ran backward), and reverse-mode of the Kalman forward pass runs
     BACKWARD - so, exactly like the primal, the two adjoint recursions
-    interleave in one fori_loop with independent carries, one reading its
+    interleave in one loop with independent carries, one reading its
     streams ascending and the other descending.  Forward intermediates
     (H, L, Gk, K, ...) are recomputed from the stored carries ``S_t`` /
     ``P_t`` - identical arithmetic to the primal - instead of being
-    streamed from HBM.
+    streamed from memory.
 
     Hand-derived adjoints (tr(Xbar^T dX) convention), Riccati step:
 
@@ -273,14 +265,11 @@ def _gains_adjoint_kernel(A_ref, B_ref, R_ref, F_ref, VV_ref, WW_ref,
         VVbar += Ppbar;  Abar += (Ppbar + Ppbar^T) A P
         Pb'   = A^T Ppbar A                               [carry]
 
-    Cotangents for the stationary inputs accumulate in scratch across the
-    whole grid and are written at the last chunk, along with ``Qfbar`` (the
-    final Riccati-adjoint carry: the primal's initial carry was ``Qf``) and
+    Cotangents for the stationary inputs accumulate in the loop carry and
+    are written once at the end, along with ``Qfbar`` (the final
+    Riccati-adjoint carry: the primal's initial carry was ``Qf``) and
     ``Sigma0bar`` (final Kalman-adjoint carry).
     """
-    c = pl.program_id(1)
-    n_chunks = pl.num_programs(1)
-
     A = _read(A_ref, n, n)
     Bm = _read(B_ref, n, m)
     R = _read(R_ref, m, m)
@@ -291,21 +280,10 @@ def _gains_adjoint_kernel(A_ref, B_ref, R_ref, F_ref, VV_ref, WW_ref,
     Bt = _transpose(Bm)
     Ft = _transpose(F)
 
-    def zmat(a, b):
-        z = _idx((VVt[0], n, n), 0, 0) * 0.0
-        return _mat([z for _ in range(a * b)], a, b)
+    zero = jnp.zeros_like(_idx(A, 0, 0))
 
-    @pl.when(c == 0)
-    def _():
-        _write_scratch(Sb_scr, zmat(n, n))
-        _write_scratch(Pb_scr, zmat(n, n))
-        _write_scratch(Aacc_scr, zmat(n, n))
-        _write_scratch(Bacc_scr, zmat(n, m))
-        _write_scratch(Qacc_scr, zmat(n, n))
-        _write_scratch(Racc_scr, zmat(m, m))
-        _write_scratch(Facc_scr, zmat(p, n))
-        _write_scratch(Vacc_scr, zmat(n, n))
-        _write_scratch(Wacc_scr, zmat(p, p))
+    def zmat(a, b):
+        return tuple(zero for _ in range(a * b))
 
     def step(i, carry):
         (sb_rows, pb_rows, aA_r, aB_r, aQ_r, aR_r, aF_r, aV_r, aW_r) = carry
@@ -352,7 +330,7 @@ def _gains_adjoint_kernel(A_ref, B_ref, R_ref, F_ref, VV_ref, WW_ref,
         Sb_new = _add(_matmul(SBbar, Bt), _matmul(SAbar, At))
 
         # --- Kalman adjoint (descending slot tt) ---
-        tt = tc - 1 - i
+        tt = T - 1 - i
         P = _read_t(Pst_ref, tt, n, n)
         Pb = _mat(list(pb_rows), n, n)
         Kb0 = _read_t(Kbar_ref, tt, n, p)
@@ -381,42 +359,23 @@ def _gains_adjoint_kernel(A_ref, B_ref, R_ref, F_ref, VV_ref, WW_ref,
                 tuple(aA[0]), tuple(aB[0]), tuple(aQ[0]), tuple(aR[0]),
                 tuple(aF[0]), tuple(aV[0]), tuple(aW[0]))
 
-    carry0 = (tuple(_read_scratch(Sb_scr, n, n)[0]),
-              tuple(_read_scratch(Pb_scr, n, n)[0]),
-              tuple(_read_scratch(Aacc_scr, n, n)[0]),
-              tuple(_read_scratch(Bacc_scr, n, m)[0]),
-              tuple(_read_scratch(Qacc_scr, n, n)[0]),
-              tuple(_read_scratch(Racc_scr, m, m)[0]),
-              tuple(_read_scratch(Facc_scr, p, n)[0]),
-              tuple(_read_scratch(Vacc_scr, n, n)[0]),
-              tuple(_read_scratch(Wacc_scr, p, p)[0]))
+    carry0 = (zmat(n, n), zmat(n, n), zmat(n, n), zmat(n, m), zmat(n, n),
+              zmat(m, m), zmat(p, n), zmat(n, n), zmat(p, p))
     (sb_f, pb_f, aA_f, aB_f, aQ_f, aR_f, aF_f, aV_f, aW_f) = \
-        jax.lax.fori_loop(0, tc, step, carry0)
-    _write_scratch(Sb_scr, _mat(list(sb_f), n, n))
-    _write_scratch(Pb_scr, _mat(list(pb_f), n, n))
-    _write_scratch(Aacc_scr, _mat(list(aA_f), n, n))
-    _write_scratch(Bacc_scr, _mat(list(aB_f), n, m))
-    _write_scratch(Qacc_scr, _mat(list(aQ_f), n, n))
-    _write_scratch(Racc_scr, _mat(list(aR_f), m, m))
-    _write_scratch(Facc_scr, _mat(list(aF_f), p, n))
-    _write_scratch(Vacc_scr, _mat(list(aV_f), n, n))
-    _write_scratch(Wacc_scr, _mat(list(aW_f), p, p))
-
-    @pl.when(c == n_chunks - 1)
-    def _():
-        _write_t(Abar_ref, 0, _read_scratch(Aacc_scr, n, n))
-        _write_t(Bbar_ref, 0, _read_scratch(Bacc_scr, n, m))
-        _write_t(Qbar_ref, 0, _read_scratch(Qacc_scr, n, n))
-        _write_t(Rbar_ref, 0, _read_scratch(Racc_scr, m, m))
-        _write_t(Qfbar_ref, 0, _read_scratch(Sb_scr, n, n))
-        _write_t(Fbar_ref, 0, _read_scratch(Facc_scr, p, n))
-        _write_t(VVbar_ref, 0, _read_scratch(Vacc_scr, n, n))
-        _write_t(WWbar_ref, 0, _read_scratch(Wacc_scr, p, p))
-        _write_t(S0bar_ref, 0, _read_scratch(Pb_scr, n, n))
+        jax.lax.fori_loop(0, T, step, carry0)
+    _write(Abar_ref, _mat(list(aA_f), n, n))
+    _write(Bbar_ref, _mat(list(aB_f), n, m))
+    _write(Qbar_ref, _mat(list(aQ_f), n, n))
+    _write(Rbar_ref, _mat(list(aR_f), m, m))
+    _write(Qfbar_ref, _mat(list(sb_f), n, n))
+    _write(Fbar_ref, _mat(list(aF_f), p, n))
+    _write(VVbar_ref, _mat(list(aV_f), n, n))
+    _write(WWbar_ref, _mat(list(aW_f), p, p))
+    _write(S0bar_ref, _mat(list(pb_f), n, n))
 
 
 def _scan_gains(spec: LQGSpec, Sigma0: jnp.ndarray, horizon: int):
-    """XLA-scan gains (batched), the differentiable twin of the kernel."""
+    """XLA-scan gains (batched), the reference twin of the kernel."""
     from lqg_tpu.ops import riccati, kalman
 
     g = riccati.backward(spec, horizon=horizon, regularize="none")
@@ -424,54 +383,19 @@ def _scan_gains(spec: LQGSpec, Sigma0: jnp.ndarray, horizon: int):
     return g.L, g.H, K
 
 
-def _assoc_gains(spec: LQGSpec, Sigma0: jnp.ndarray, horizon: int):
-    """Associative-scan gains - the O(log T)-depth differentiable twin.
-
-    Same math as :func:`_scan_gains` (parity-tested in
-    ``tests/test_parallel.py``) but expressed via
-    ``lax.associative_scan`` (:mod:`lqg_tpu.parallel.pscan`), so BOTH the
-    primal replay and its VJP run as ~log2(T) batched stages instead of T
-    sequential dependent steps.  Under NUTS, every leapfrog differentiates
-    the gains w.r.t. the spec; with the sequential scan that backward chain
-    pays the ~25 us/step TPU dispatch floor (~50 ms at T=1000) regardless
-    of arithmetic - this is the remaining hot-path asymmetry VERDICT round
-    2 flags.  Requires what the fused kernel already guarantees
-    (stationary spec, zero affine/cross cost terms, invertible R and WW^T).
-    """
-    from lqg_tpu.parallel.pscan import (lqr_backward_assoc,
-                                        kalman_forward_assoc)
-
-    g = lqr_backward_assoc(spec, horizon=horizon)
-    K = kalman_forward_assoc(spec, Sigma0=Sigma0, horizon=horizon)
-    return g.L, g.H, K
-
-
-# VJP implementation for gains_fused:
-#   "kernel" - analytic adjoint Pallas kernel (default): hand-derived
-#       reverse recursions fused on-chip (see _gains_adjoint_kernel);
-#   "scan"   - differentiate the sequential XLA twin;
-#   "assoc"  - differentiate the parallel-in-time twin.
-# Measured on TPU v5e at the real-data fit workload (6 conditions, T=1008,
-# BoundedActor), potential value+grad: 23.2 ms scan twin, 69.9 ms assoc
-# twin (53 ms vs 285 ms for 4 vmapped chains - the assoc twin's O(T)
-# intermediates are HBM-bound at small batch, exactly the NUTS regime);
-# the adjoint kernel replaces both with two ~0.1 ms launches.
-GAINS_VJP_METHOD = "kernel"
-
-
 @functools.lru_cache(maxsize=None)
-def _gains_fwd_cv(horizon: int):
+def _gains_fwd_cv(horizon: int, interpret: bool):
     """custom_vmap wrapper folding mapped axes into the particle axis.
 
     Without this, vmap over ``gains_fused`` (e.g. NUTS chains vmapped over
-    the model potential) hits the default pallas batching rule - one
-    serialized kernel instance per chain, each paying the full T-loop
-    latency.  Folding rides all chains on the kernel's lane batch instead.
+    the model potential) hits the default pallas batching rule - one grid
+    dimension per mapped axis, each chain's program a separate lane block.
+    Folding rides all chains on the lanes of the same programs instead.
     """
     import jax.custom_batching
 
     def call(spec, Sigma0):
-        return fused_gains(spec, Sigma0, horizon=horizon)
+        return fused_gains(spec, Sigma0, horizon=horizon, interpret=interpret)
 
     cv = jax.custom_batching.custom_vmap(call)
 
@@ -527,9 +451,10 @@ def _require_zero_affine_costs(spec: LQGSpec):
                 f"(System.gains(method='scan')) for affine-cost problems")
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def gains_fused(spec: LQGSpec, Sigma0: jnp.ndarray, horizon: int):
-    """Differentiable fused gains: Pallas kernel forward, parallel backward.
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
+def gains_fused(spec: LQGSpec, Sigma0: jnp.ndarray, horizon: int,
+                interpret: bool = False):
+    """Differentiable fused gains: kernel forward, analytic-adjoint backward.
 
     Precondition: the affine/cross cost terms ``q, qf, P, r`` must be
     structurally zero - the kernel ignores them in the forward pass and the
@@ -537,31 +462,28 @@ def gains_fused(spec: LQGSpec, Sigma0: jnp.ndarray, horizon: int):
     nonzero values raise; tracer values are trusted (see
     :func:`_require_zero_affine_costs` and ``System._fused_ok``).
 
-    The Pallas kernel computes the primal only; inference needs gradients of the
-    gains w.r.t. the spec (the NUTS/MLE chain rules through
-    parameters -> matrices -> gains -> likelihood).  This wrapper runs the
-    fused kernel as the primal and computes the VJP through the
-    associative-scan twin (:func:`_assoc_gains` - same math as the scan
-    path with ``regularize="none"``, O(log T) depth), so ``jax.grad``
-    through a fused-gains likelihood matches the scan path to O(eps)
-    WITHOUT paying T sequential dispatch steps in the backward pass.
-    The primal is vmap-aware: mapped axes fold into the particle batch.
+    The VJP runs :func:`_gains_adjoint_call` (forward kernel with stores,
+    then the adjoint kernel), so ``jax.grad`` through a fused-gains
+    likelihood matches differentiating the scan twin to f32 rounding.
+    Both directions are vmap-aware: mapped axes fold into the particle
+    batch.
 
     Same contract as :func:`fused_gains` (batched stationary spec).
     """
     _require_zero_affine_costs(spec)
-    return _gains_fwd_cv(horizon)(spec, Sigma0)
+    return _gains_fwd_cv(horizon, interpret)(spec, Sigma0)
 
 
 @functools.lru_cache(maxsize=None)
-def _gains_adj_cv(horizon: int):
+def _gains_adj_cv(horizon: int, interpret: bool):
     """custom_vmap wrapper for the adjoint kernel call: mapped axes (NUTS
     chains vmapped over the potential's VJP) fold into the particle axis,
     mirroring :func:`_gains_fwd_cv` on the forward side."""
     import jax.custom_batching
 
     def call(spec, Sigma0, Lbar, Hbar, Kbar):
-        return _gains_adjoint_call(spec, Sigma0, horizon, Lbar, Hbar, Kbar)
+        return _gains_adjoint_call(spec, Sigma0, horizon, Lbar, Hbar, Kbar,
+                                   interpret=interpret)
 
     cv = jax.custom_batching.custom_vmap(call)
 
@@ -601,73 +523,82 @@ def _gains_adj_cv(horizon: int):
     return cv
 
 
-def _gains_fused_fwd(spec, Sigma0, horizon):
+def _gains_fused_fwd(spec, Sigma0, horizon, interpret):
     _require_zero_affine_costs(spec)
-    return _gains_fwd_cv(horizon)(spec, Sigma0), (spec, Sigma0)
+    return _gains_fwd_cv(horizon, interpret)(spec, Sigma0), (spec, Sigma0)
 
 
-def _gains_fused_bwd(horizon, res, cotangents):
+def _gains_fused_bwd(horizon, interpret, res, cotangents):
     spec, Sigma0 = res
-    if GAINS_VJP_METHOD == "kernel":
-        Lbar, Hbar, Kbar = cotangents
-        return _gains_adj_cv(horizon)(spec, Sigma0, Lbar, Hbar, Kbar)
-    twin = _assoc_gains if GAINS_VJP_METHOD == "assoc" else _scan_gains
-    _, vjp = jax.vjp(lambda s, S0: twin(s, S0, horizon), spec, Sigma0)
-    return vjp(cotangents)
+    Lbar, Hbar, Kbar = cotangents
+    return _gains_adj_cv(horizon, interpret)(spec, Sigma0, Lbar, Hbar, Kbar)
 
 
 gains_fused.defvjp(_gains_fused_fwd, _gains_fused_bwd)
 
 
 def fused_gains_available(spec: LQGSpec) -> bool:
-    """Kernel scope check: stationary spec, small dims, square noise mats."""
+    """Kernel scope check: stationary spec, small dims, square noise mats.
+
+    n <= 4 covers the zoo's in-scope actors (n = 2, 3, 4); the kernels
+    unroll ~n^3 operations per step, and their GPU compile grows with it
+    (14 s at n = 3, 80 s at n = 4 for value+grad, PERF.md)."""
     if spec.A.ndim != spec.Qf.ndim:  # stacked
         return False
     n = spec.A.shape[-1]
     m = spec.B.shape[-1]
     p = spec.F.shape[-2]
-    return (n <= 8 and m <= 2 and p <= 3
+    return (n <= 4 and m <= 2 and p <= 3
             and spec.V.shape[-1] == n and spec.W.shape[-1] == p)
 
 
-def _gains_layout(Bn):
-    n_pblocks = -(-Bn // BLOCK)
-    return n_pblocks, n_pblocks * BLOCK
+def _padded(Bn: int, lanes: int) -> int:
+    return -(-Bn // lanes) * lanes
 
 
-def _rows_const(x, Bn, Bp, r, c):
-    # (B, r, c) -> (r*c, Bp/LANE, LANE), edge-padded particles
+def _rows_const(x, Bp, r, c):
+    # (B, r, c) -> (r*c, Bp), edge-padded particles
+    Bn = x.shape[0]
     flat = jnp.moveaxis(x.reshape(Bn, r * c), 0, -1)
     if Bp != Bn:
         flat = jnp.pad(flat, ((0, 0), (0, Bp - Bn)), mode="edge")
-    return flat.reshape(r * c, Bp // LANE, LANE)
+    return flat
 
 
-def _rows_sched(x, T, Bn, Bp, r, c):
-    # (T, B, r, c) -> (T, r*c, Bp/LANE, LANE), zero-padded particles
+def _rows_sched(x, Bp, r, c):
+    # (T, B, r, c) -> (T, r*c, Bp), zero-padded particles
+    T, Bn = x.shape[:2]
     flat = jnp.moveaxis(x.reshape(T, Bn, r * c), 1, -1)
     if Bp != Bn:
         flat = jnp.pad(flat, ((0, 0), (0, 0), (0, Bp - Bn)))
-    return flat.reshape(T, r * c, Bp // LANE, LANE)
+    return flat
+
+
+def _noise_covs(spec: LQGSpec):
+    mT_ = lambda M: jnp.swapaxes(M, -1, -2)
+    with jax.default_matmul_precision("highest"):
+        return spec.V @ mT_(spec.V), spec.W @ mT_(spec.W)
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("horizon", "time_chunk", "unroll",
-                                    "with_stores", "eps"))
+                   static_argnames=("horizon", "with_stores", "eps",
+                                    "interpret", "lanes", "num_warps"))
 def fused_gains(spec: LQGSpec, Sigma0: jnp.ndarray, horizon: int,
-                time_chunk: int = 250, eps: float = 1e-12, block=None,
-                unroll: int = 1, with_stores: bool = False):
+                eps: float = 1e-12, with_stores: bool = False,
+                interpret: bool = False, lanes: int = LANES,
+                num_warps: int = NUM_WARPS):
     """Fused gain schedules for a batch of stationary specs.
 
     Args:
         spec: batched stationary spec; leading axis B (particles).
         Sigma0: (B, n, n) initial covariance.
-        horizon: T (must divide by ``time_chunk``).
-        time_chunk: horizon steps per grid step (bounds VMEM).
-        with_stores: additionally stream the per-step recursion carries
-            (Riccati ``S_t``, Kalman ``P_t``) to HBM in the raw lane layout
-            - the residues of the analytic adjoint kernel (internal; see
+        horizon: T.
+        with_stores: additionally return the per-step recursion carries
+            (Riccati ``S_t``, Kalman ``P_t``) in the raw lane layout - the
+            residues of the analytic adjoint kernel (internal; see
             :func:`_gains_adjoint_call`).
+        interpret: run in the Pallas interpreter instead of compiling.
+        lanes, num_warps: particles and warps per program.
 
     Returns:
         ``(L, H, K)`` with shapes ``(T, B, m, n)``, ``(T, B, m, m)``,
@@ -675,100 +606,53 @@ def fused_gains(spec: LQGSpec, Sigma0: jnp.ndarray, horizon: int,
         :func:`lqg_tpu.ops.kalman.forward` (with ``regularize="none"``).
         With ``with_stores``: ``(L, H, K, (S_raw, P_raw))``.
     """
-    del block  # legacy arg
     Bn = spec.A.shape[0]
     n = spec.A.shape[-1]
     m = spec.B.shape[-1]
     p = spec.F.shape[-2]
     T = horizon
-    tc = time_chunk
-    if with_stores:
-        # the two extra (n*n)-row streams grow the per-chunk VMEM
-        # footprint; shrink the chunk to a ~2 MB streaming budget
-        per_step = m * n + m * m + n * p + 2 * n * n
-        tc = min(tc, max(1, (2 << 20) // (per_step * SUB * LANE * 4)))
-    while T % tc:
-        tc -= 1
-    n_chunks = T // tc
     dtype = spec.A.dtype
+    Bp = _padded(Bn, lanes)
+    rows = lambda x, r, c: _rows_const(x, Bp, r, c)
+    VV, WW = _noise_covs(spec)
 
-    n_pblocks, Bp = _gains_layout(Bn)
-    rows = lambda x, r, c: _rows_const(x, Bn, Bp, r, c)
+    def in_spec(r):
+        return pl.BlockSpec((r, lanes), lambda b: (0, b))
 
-    mT_ = lambda M: jnp.swapaxes(M, -1, -2)
-    VV = spec.V @ mT_(spec.V)
-    WW = spec.W @ mT_(spec.W)
+    def out_spec(r):
+        return pl.BlockSpec((T, r, lanes), lambda b: (0, 0, b))
 
-    def pspec(r):
-        # input block: all rows, one particle block; same for every t-chunk
-        return pl.BlockSpec((r, SUB, LANE), lambda pb, c: (0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    def out_spec_rev(r):
-        # reverse-time output: chunk c covers time block n_chunks-1-c
-        return pl.BlockSpec((tc, r, SUB, LANE),
-                            lambda pb, c, n_chunks=n_chunks:
-                            (n_chunks - 1 - c, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    def out_spec_fwd(r):
-        return pl.BlockSpec((tc, r, SUB, LANE),
-                            lambda pb, c: (c, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    grid = (n_pblocks, n_chunks)
-    interpret = jax.default_backend() != "tpu"
-    compiler_params = None if interpret else pltpu.CompilerParams(
-        dimension_semantics=("arbitrary", "arbitrary"))
-
-    out_specs = [out_spec_rev(m * n), out_spec_rev(m * m),
-                 out_spec_fwd(n * p)]
-    out_shape = [
-        jax.ShapeDtypeStruct((T, m * n, Bp // LANE, LANE), dtype),
-        jax.ShapeDtypeStruct((T, m * m, Bp // LANE, LANE), dtype),
-        jax.ShapeDtypeStruct((T, n * p, Bp // LANE, LANE), dtype),
-    ]
-    if with_stores:
-        out_specs += [out_spec_rev(n * n), out_spec_fwd(n * n)]
-        out_shape += [
-            jax.ShapeDtypeStruct((T, n * n, Bp // LANE, LANE), dtype),
-            jax.ShapeDtypeStruct((T, n * n, Bp // LANE, LANE), dtype),
-        ]
-
-    # ONE launch: both recursions share the fori_loop (independent carries;
-    # L/H stream to the reverse-time block of each chunk, K forward)
-    outs = pl.pallas_call(
-        functools.partial(_gains_merged_kernel, n=n, m=m, p=p, T=T, tc=tc,
-                          eps=eps, unroll=unroll, emit_stores=with_stores),
-        grid=grid,
-        in_specs=[pspec(n * n), pspec(n * m), pspec(n * n), pspec(m * m),
-                  pspec(n * n), pspec(p * n), pspec(n * n), pspec(p * p),
-                  pspec(n * n)],
-        out_specs=tuple(out_specs),
-        out_shape=tuple(out_shape),
-        scratch_shapes=[pltpu.VMEM((n * n, SUB, LANE), dtype),
-                        pltpu.VMEM((n * n, SUB, LANE), dtype)],
-        compiler_params=compiler_params,
-        interpret=interpret,
+    sizes = [m * n, m * m, n * p] + ([n * n, n * n] if with_stores else [])
+    outs = pallas_gpu_call(
+        functools.partial(_gains_kernel, n=n, m=m, p=p, T=T, eps=eps,
+                          emit_stores=with_stores),
+        grid=(Bp // lanes,),
+        in_specs=[in_spec(n * n), in_spec(n * m), in_spec(n * n),
+                  in_spec(m * m), in_spec(n * n), in_spec(p * n),
+                  in_spec(n * n), in_spec(p * p), in_spec(n * n)],
+        out_specs=tuple(out_spec(r) for r in sizes),
+        out_shape=tuple(jax.ShapeDtypeStruct((T, r, Bp), dtype)
+                        for r in sizes),
+        interpret=interpret, num_warps=num_warps, name="lqg_gains",
     )(rows(spec.A, n, n), rows(spec.B, n, m), rows(spec.Q, n, n),
       rows(spec.R, m, m), rows(spec.Qf, n, n), rows(spec.F, p, n),
       rows(VV, n, n), rows(WW, p, p), rows(Sigma0, n, n))
 
     def unrows(x, r, c):
-        # (T, r*c, Bp/LANE, LANE) -> (T, B, r, c)
-        flat = x.reshape(T, r * c, Bp)[..., :Bn]
-        return jnp.moveaxis(flat, -1, 1).reshape(T, Bn, r, c)
+        # (T, r*c, Bp) -> (T, B, r, c)
+        return jnp.moveaxis(x[..., :Bn], -1, 1).reshape(T, Bn, r, c)
 
-    L, H, K = outs[0], outs[1], outs[2]
-    res = (unrows(L, m, n), unrows(H, m, m), unrows(K, n, p))
+    res = (unrows(outs[0], m, n), unrows(outs[1], m, m),
+           unrows(outs[2], n, p))
     if with_stores:
         return res + ((outs[3], outs[4]),)
     return res
 
 
-@functools.partial(jax.jit, static_argnames=("horizon", "eps"))
+@functools.partial(jax.jit, static_argnames=("horizon", "eps", "interpret"))
 def _gains_adjoint_call(spec: LQGSpec, Sigma0, horizon: int,
-                        Lbar, Hbar, Kbar, eps: float = 1e-12):
+                        Lbar, Hbar, Kbar, eps: float = 1e-12,
+                        interpret: bool = False):
     """Analytic gains VJP: re-run the forward kernel with stores, then one
     adjoint kernel launch.  Returns ``(spec_bar, Sigma0_bar)``.
 
@@ -782,81 +666,52 @@ def _gains_adjoint_call(spec: LQGSpec, Sigma0, horizon: int,
     T = horizon
     dtype = spec.A.dtype
 
-    _, _, _, (S_raw, P_raw) = fused_gains(spec, Sigma0, horizon,
-                                          with_stores=True, eps=eps)
-    # stores were produced at the (VMEM-budgeted) forward chunking; the
-    # adjoint streams more rows per step, so budget its own chunk
-    per_step = 2 * n * n + 2 * (m * n) + 2 * (m * m) + 2 * (n * p)
-    tc = min(T, max(1, (2 << 20) // (per_step * SUB * LANE * 4)))
-    while T % tc:
-        tc -= 1
-    n_chunks = T // tc
+    _, _, _, (S_raw, P_raw) = fused_gains(
+        spec, Sigma0, horizon, with_stores=True, eps=eps,
+        interpret=interpret)
 
-    n_pblocks, Bp = _gains_layout(Bn)
-    rows = lambda x, r, c: _rows_const(x, Bn, Bp, r, c)
-    rows_t = lambda x, r, c: _rows_sched(x, T, Bn, Bp, r, c)
+    lanes = LANES
+    Bp = _padded(Bn, lanes)
+    rows = lambda x, r, c: _rows_const(x, Bp, r, c)
+    rows_t = lambda x, r, c: _rows_sched(x, Bp, r, c)
+    VV, WW = _noise_covs(spec)
 
-    mT_ = lambda M: jnp.swapaxes(M, -1, -2)
-    VV = spec.V @ mT_(spec.V)
-    WW = spec.W @ mT_(spec.W)
+    def in_spec(r):
+        return pl.BlockSpec((r, lanes), lambda b: (0, b))
 
-    def pspec(r):
-        return pl.BlockSpec((r, SUB, LANE), lambda pb, c: (0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    def spec_fwd(r):
-        return pl.BlockSpec((tc, r, SUB, LANE), lambda pb, c: (c, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    def spec_rev(r):
-        return pl.BlockSpec((tc, r, SUB, LANE),
-                            lambda pb, c, n_chunks=n_chunks:
-                            (n_chunks - 1 - c, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    def out_const(r):
-        return pl.BlockSpec((1, r, SUB, LANE), lambda pb, c: (0, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    grid = (n_pblocks, n_chunks)
-    interpret = jax.default_backend() != "tpu"
-    compiler_params = None if interpret else pltpu.CompilerParams(
-        dimension_semantics=("arbitrary", "arbitrary"))
+    def in_spec_t(r):
+        return pl.BlockSpec((T, r, lanes), lambda b: (0, 0, b))
 
     shapes = [(n, n), (n, m), (n, n), (m, m), (n, n), (p, n), (n, n),
               (p, p), (n, n)]
-    outs = pl.pallas_call(
-        functools.partial(_gains_adjoint_kernel, n=n, m=m, p=p, T=T, tc=tc,
+    outs = pallas_gpu_call(
+        functools.partial(_gains_adjoint_kernel, n=n, m=m, p=p, T=T,
                           eps=eps),
-        grid=grid,
-        in_specs=[pspec(n * n), pspec(n * m), pspec(m * m), pspec(p * n),
-                  pspec(n * n), pspec(p * p),
-                  spec_fwd(n * n), spec_rev(n * n),
-                  spec_fwd(m * n), spec_fwd(m * m), spec_rev(n * p)],
-        out_specs=tuple(out_const(a * b) for a, b in shapes),
-        out_shape=tuple(
-            jax.ShapeDtypeStruct((1, a * b, Bp // LANE, LANE), dtype)
-            for a, b in shapes),
-        scratch_shapes=[pltpu.VMEM((r, SUB, LANE), dtype)
-                        for r in (n * n, n * n, n * n, n * m, n * n,
-                                  m * m, p * n, n * n, p * p)],
-        compiler_params=compiler_params,
-        interpret=interpret,
+        grid=(Bp // lanes,),
+        in_specs=[in_spec(n * n), in_spec(n * m), in_spec(m * m),
+                  in_spec(p * n), in_spec(n * n), in_spec(p * p),
+                  in_spec_t(n * n), in_spec_t(n * n),
+                  in_spec_t(m * n), in_spec_t(m * m), in_spec_t(n * p)],
+        out_specs=tuple(in_spec(a * b) for a, b in shapes),
+        out_shape=tuple(jax.ShapeDtypeStruct((a * b, Bp), dtype)
+                        for a, b in shapes),
+        interpret=interpret, num_warps=NUM_WARPS, name="lqg_gains_adjoint",
     )(rows(spec.A, n, n), rows(spec.B, n, m), rows(spec.R, m, m),
       rows(spec.F, p, n), rows(VV, n, n), rows(WW, p, p),
       S_raw, P_raw,
       rows_t(Lbar, m, n), rows_t(Hbar, m, m), rows_t(Kbar, n, p))
 
     def unrows(x, a, b):
-        flat = x.reshape(a * b, Bp)[..., :Bn]
-        return jnp.moveaxis(flat, -1, 0).reshape(Bn, a, b)
+        return jnp.moveaxis(x[:, :Bn], -1, 0).reshape(Bn, a, b)
 
     (Abar, Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar,
-     S0bar) = (unrows(o[0], a, b) for o, (a, b) in zip(outs, shapes))
+     S0bar) = (unrows(o, a, b) for o, (a, b) in zip(outs, shapes))
 
+    mT_ = lambda M: jnp.swapaxes(M, -1, -2)
     # chain VV = V V^T, WW = W W^T back to the noise-scale matrices
-    Vbar = (VVbar + mT_(VVbar)) @ spec.V
-    Wbar = (WWbar + mT_(WWbar)) @ spec.W
+    with jax.default_matmul_precision("highest"):
+        Vbar = (VVbar + mT_(VVbar)) @ spec.V
+        Wbar = (WWbar + mT_(WWbar)) @ spec.W
 
     # canonical gauge: the cotangents of the symmetric-matrix inputs
     # (Q, Qf, R, Sigma0) are only determined up to their asymmetric part

@@ -1,34 +1,30 @@
-"""Fused Pallas TPU kernel for the marginalized trajectory likelihood.
+"""Fused Pallas kernels (Triton route) for the marginalized trajectory likelihood.
 
-The inverse-OC likelihood (reference ``lqg/system.py:142-248``) is the #1
-hot path: every NUTS leapfrog and every MLE step evaluates it and its
-gradient.  The XLA implementation (:mod:`lqg_tpu.ops.gaussian`) runs
-``lax.scan`` s over T whose per-step cost is bound by the strictly
-sequential chain of tiny (j x j) matrix ops (~20 us/step measured on TPU
-v5e); the fused kernel below runs the same recursion at ~3.5 us/step,
-~4x faster for value+grad at T=1000; with the analytic gains adjoint
-kernel engaged the full NUTS leapfrog sits at ~2.9 ms vs round 3's
-17.7 ms (measured: docs/perf.md, BENCH_notes_r4.json).
+The inverse-OC likelihood (reference ``lqg/system.py:142-248``) is the hot
+path: every NUTS leapfrog and every MLE step evaluates it and its gradient.
+The XLA implementation (:mod:`lqg_tpu.ops.gaussian`) runs ``lax.scan`` s
+over T whose per-step cost is a strictly sequential chain of tiny (j x j)
+matrix ops, and on a GPU each scan step pays its own kernel launches.  The
+kernels below run the whole conditioned recursion in one program:
 
-This module keeps the WHOLE conditioned/marginalized recursion on-chip:
-
-* **Layout**: like :mod:`lqg_tpu.ops.pallas.gains`, lanes are batch - here a
-  flattened (parameter-set, trial) axis filling (8, 128) VPU tiles; the
-  ``j x j`` joint-state matrices are unrolled as per-element tiles, so each
-  recursion step is straight-line FMA code at full vector width.
-* **Time-chunked grid** with the carry (``Sigma_t``, ``mu_t``, accumulators)
-  in VMEM scratch; per-chunk HBM streaming of the joint transition/noise
-  schedules.
-* **Analytic adjoint**: a second Pallas kernel runs the reverse-mode
-  recursion (derived by hand, see ``_ll_bwd_kernel``) over per-step states
-  stored by the forward pass, so ``jax.value_and_grad`` of the likelihood is
-  also a fused kernel instead of an XLA scan chain.
+* **Layout**: one program per (parameter set, block of trials).  Trials are
+  the lanes of a 1-D block; the ``j x j`` joint-state matrices are
+  unrolled as per-element values, so each recursion step is straight-line
+  FMA code on registers.
+* **Data-free covariance as scalars**: the covariance recursion
+  (``Sigma_t``, its inverse blocks, the log-determinant) does not depend on
+  the data, so a program computes it once, as scalars, from its parameter
+  set's ``F`` and ``Q`` read directly (never broadcast across trials); only
+  the conditional mean and the quadratic form are per-trial lane vectors.
+* **Time loop in-program**: a ``fori_loop`` over all of T carries the
+  recursion in values; per-step states are stored at a dynamic time index.
+* **Analytic adjoint**: a second kernel runs the reverse-mode recursion
+  (derived by hand, see ``_ll_bwd_kernel``) over the stored states, so
+  ``jax.value_and_grad`` of the likelihood is also a fused kernel.
 
 Scope: joint dim ``j <= 12``, observed dim ``d <= 4``, float32 - every
 shipped tracking model at dim=1 and dim=2 fits; deeper models (delay
-registers) route to the blocked MXU-tile kernel
-(:mod:`lqg_tpu.ops.pallas.likelihood_blocked`) or the XLA scan
-automatically (see ``fused_ll_available`` / ``blocked_ll_available``).
+registers) run the XLA scan (see ``fused_ll_available``).
 """
 
 from __future__ import annotations
@@ -40,12 +36,17 @@ import jax
 import jax.custom_batching
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from lqg_tpu.ops.pallas.gains import (SUB, LANE, BLOCK, _mat, _idx, _matmul,
-                                      _transpose, _add, _sub, _neg, _read)
+from lqg_tpu.ops.pallas.gains import (_mat, _idx, _matmul, _transpose, _add,
+                                      _sub, _neg, _read_t, _write_t,
+                                      pallas_gpu_call)
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+# trials per program (a power of two; 16 and 32 measured equal at the
+# data-fit shape on an H100, PERF.md) and warps per program
+TRIALS = 32
+NUM_WARPS = 1
 
 
 # --- small symmetric inverse with determinant ---
@@ -57,11 +58,11 @@ def _sym_inv_det(A, eps):
     assert n == m <= 4
     if n == 1:
         det = rows[0]
-        return _mat([pl.reciprocal(det + eps, approx=False)], 1, 1), det
+        return _mat([1.0 / (det + eps)], 1, 1), det
     if n == 2:
         a, b, _, dd = rows
         det = a * dd - b * b
-        inv = pl.reciprocal(det + eps, approx=False)
+        inv = 1.0 / (det + eps)
         return _mat([dd * inv, -b * inv, -b * inv, a * inv], 2, 2), det
     if n == 3:
         a, b, c, _, e, f, _, _, i = rows
@@ -69,7 +70,7 @@ def _sym_inv_det(A, eps):
         A12 = c * f - b * i
         A13 = b * f - c * e
         det = a * A11 + b * A12 + c * A13
-        inv = pl.reciprocal(det + eps, approx=False)
+        inv = 1.0 / (det + eps)
         A22 = a * i - c * c
         A23 = b * c - a * f
         A33 = a * e - b * b
@@ -118,28 +119,21 @@ def _block(M, rows_n, cols_n):
                  for k in range(cols_n)], rows_n, cols_n)
 
 
-def _zeros_like_tile(t):
-    return t * 0.0
+def _read_x(ref, t, d):
+    return _mat([ref[t, k] for k in range(d)], d, 1)
 
 
-def _read_t(ref, t, n, m):
+def _read_s(ref, t, n, m):
+    """Scalars ``ref[t, 0..n*m)`` of a per-parameter-set schedule."""
     return _mat([ref[t, i] for i in range(n * m)], n, m)
 
 
-def _write_t(ref, t, M):
+def _write_s(ref, t, M):
+    """Store scalars at ``ref[t, 0..n*m)`` (every program of a parameter
+    set stores the same data-free values)."""
     rows, n, m = M
     for i in range(n * m):
         ref[t, i] = rows[i]
-
-
-def _write_scr(ref, M):
-    rows, n, m = M
-    for i in range(n * m):
-        ref[i] = rows[i]
-
-
-def _read_scr(ref, n, m):
-    return _mat([ref[i] for i in range(n * m)], n, m)
 
 
 # --- forward kernel ---
@@ -147,23 +141,23 @@ def _read_scr(ref, n, m):
 
 def _neumaier_add(s, comp, v):
     """Compensated accumulate: ``s += v`` keeping the lost low bits in
-    ``comp``.  The per-lane quad/logdet accumulators reach O(1e4) nats over
-    T~1e3 steps; plain f32 accumulation random-walks ~0.03 nats/lane, which
-    (x ~100 trial lanes) is exactly the potential noise floor that pinned
-    NUTS step sizes at the flagship fit (lqg_tpu.utils.numerics)."""
+    ``comp``.  The per-trial quad/logdet accumulators reach O(1e4) nats
+    over T~1e3 steps; plain f32 accumulation random-walks ~0.03 nats per
+    trial, which (x ~100 trials) is exactly the potential noise floor that
+    pinned NUTS step sizes at the flagship fit (lqg_tpu.utils.numerics)."""
     t = s + v
     comp = comp + jnp.where(jnp.abs(s) >= jnp.abs(v), (s - t) + v,
                             (v - t) + s)
     return t, comp
 
 
-def _ll_fwd_kernel(F_ref, Q_ref, X_ref, xT_ref, ll_ref, SigS_ref, muS_ref,
-                   SigT_ref, muT_ref, Sig_scr, mu_scr, acc_scr,
-                   *, j, d, T, tc, eps):
+def _ll_fwd_kernel(F_ref, Q_ref, X_ref, ll_ref, SigS_ref, muS_ref,
+                   SigT_ref, muT_ref, *, j, d, T, eps):
     """Forward conditioned recursion; stores per-step (Sigma_t, mu_t).
 
-    Recursion (per lane; matches :func:`lqg_tpu.ops.gaussian.conditional_kernel`
-    + ``trial_log_likelihood`` exactly):
+    Recursion (per trial lane; matches
+    :func:`lqg_tpu.ops.gaussian.conditional_kernel` + ``trial_log_likelihood``
+    exactly):
 
         init:  Sigma_0 = Q_0,  mu_0 = [x_0; 0]
         t = 0..T-1:
@@ -174,45 +168,31 @@ def _ll_fwd_kernel(F_ref, Q_ref, X_ref, xT_ref, ll_ref, SigS_ref, muS_ref,
             Sigma <- sym(FS F_t^T + Q_t - J P^T)
         final: S = Sigma_T[:d,:d]; e = x_T - mu_T[:d]; accumulate score
         ll = -0.5 (quad + ld + T d log 2pi)
+
+    ``Sigma``, ``S``, ``J`` and ``ld`` are data-free scalars; ``mu``, ``e``
+    and ``quad`` are lane vectors over the program's trials.
     """
-    c = pl.program_id(1)
-    n_chunks = pl.num_programs(1)
+    x0 = _read_x(X_ref, 0, d)[0]
+    zero = jnp.zeros_like(x0[0])
 
-    @pl.when(c == 0)
-    def _():
-        # Sigma_0 = Q_0
-        _write_scr(Sig_scr, _read_t(Q_ref, 0, j, j))
-        # mu_0 = [x_0; 0]
-        x0 = [X_ref[0, i] for i in range(d)]
-        for i in range(j):
-            mu_scr[i] = x0[i] if i < d else _zeros_like_tile(x0[0])
-        acc_scr[0] = _zeros_like_tile(x0[0])  # quad
-        acc_scr[1] = _zeros_like_tile(x0[0])  # logdet
-        acc_scr[2] = _zeros_like_tile(x0[0])  # quad compensation
-        acc_scr[3] = _zeros_like_tile(x0[0])  # logdet compensation
-
-    # carries ride the fori_loop VALUE (registers); scratch only bridges
-    # chunks of the time grid
-    def step(i, carry):
+    def step(t, carry):
         sig_rows, mu_rows, quad_acc, ld_acc, quad_c, ld_c = carry
-        t_global = c * tc + i
         Sigma = _mat(list(sig_rows), j, j)
         mu = _mat(list(mu_rows), j, 1)
 
         # store carries for the backward pass
-        _write_t(SigS_ref, i, Sigma)
-        _write_t(muS_ref, i, mu)
+        _write_s(SigS_ref, t, Sigma)
+        _write_t(muS_ref, t, mu)
 
-        F = _read_t(F_ref, i, j, j)
-        Q = _read_t(Q_ref, i, j, j)
+        F = _read_s(F_ref, t, j, j)
+        Q = _read_s(Q_ref, t, j, j)
 
         S = _block(Sigma, d, d)
         Sinv, det = _sym_inv_det(S, eps)
-        x_t = _mat([X_ref[i, k] for k in range(d)], d, 1)
-        e = _sub(x_t, _block(mu, d, 1))
+        e = _sub(_read_x(X_ref, t, d), _block(mu, d, 1))
 
         # score x_t | x_{<t} for t >= 1
-        mask = jnp.where(t_global >= 1, 1.0, 0.0)
+        mask = (t >= 1).astype(zero.dtype)
         Se = _matmul(Sinv, e)
         quad = _idx(e, 0, 0) * _idx(Se, 0, 0)
         for r in range(1, d):
@@ -231,45 +211,35 @@ def _ll_fwd_kernel(F_ref, Q_ref, X_ref, xT_ref, ll_ref, SigS_ref, muS_ref,
         return (tuple(Sigma_new[0]), tuple(mu_new[0]),
                 quad_acc, ld_acc, quad_c, ld_c)
 
-    carry0 = (tuple(_read_scr(Sig_scr, j, j)[0]),
-              tuple(_read_scr(mu_scr, j, 1)[0]),
-              acc_scr[0], acc_scr[1], acc_scr[2], acc_scr[3])
+    s0 = jnp.zeros((), zero.dtype)
+    carry0 = (tuple(_read_s(Q_ref, 0, j, j)[0]),
+              tuple(x0[i] if i < d else zero for i in range(j)),
+              zero, s0, zero, s0)
     sig_f, mu_f, quad_f, ld_f, quad_cf, ld_cf = jax.lax.fori_loop(
-        0, tc, step, carry0)
-    _write_scr(Sig_scr, _mat(list(sig_f), j, j))
-    _write_scr(mu_scr, _mat(list(mu_f), j, 1))
-    acc_scr[0] = quad_f
-    acc_scr[1] = ld_f
-    acc_scr[2] = quad_cf
-    acc_scr[3] = ld_cf
+        0, T, step, carry0)
 
-    @pl.when(c == n_chunks - 1)
-    def _():
-        Sigma = _read_scr(Sig_scr, j, j)
-        mu = _read_scr(mu_scr, j, 1)
-        _write_t(SigT_ref, 0, Sigma)   # final state for the backward pass
-        _write_t(muT_ref, 0, mu)
+    Sigma = _mat(list(sig_f), j, j)
+    mu = _mat(list(mu_f), j, 1)
+    _write_s(SigT_ref, 0, Sigma)   # final state for the backward pass
+    _write_t(muT_ref, 0, mu)
 
-        S = _block(Sigma, d, d)
-        Sinv, det = _sym_inv_det(S, eps)
-        xT = _mat([xT_ref[0, k] for k in range(d)], d, 1)
-        e = _sub(xT, _block(mu, d, 1))
-        Se = _matmul(Sinv, e)
-        quad = _idx(e, 0, 0) * _idx(Se, 0, 0)
-        for r in range(1, d):
-            quad = quad + _idx(e, r, 0) * _idx(Se, r, 0)
-        # fold the compensation terms (small) before the large partials
-        total = (acc_scr[2] + acc_scr[3] + quad + jnp.log(det)) \
-            + acc_scr[0] + acc_scr[1] + T * d * _LOG_2PI
-        ll_ref[0] = -0.5 * total
+    Sinv, det = _sym_inv_det(_block(Sigma, d, d), eps)
+    e = _sub(_read_x(X_ref, T, d), _block(mu, d, 1))
+    Se = _matmul(Sinv, e)
+    quad = _idx(e, 0, 0) * _idx(Se, 0, 0)
+    for r in range(1, d):
+        quad = quad + _idx(e, r, 0) * _idx(Se, r, 0)
+    # fold the compensation terms (small) before the large partials
+    total = (quad_cf + ld_cf + quad + jnp.log(det)) \
+        + quad_f + ld_f + T * d * _LOG_2PI
+    ll_ref[...] = -0.5 * total
 
 
 # --- backward (adjoint) kernel ---
 
 
-def _ll_bwd_kernel(F_ref, Q_ref, X_ref, xT_ref, w_ref, SigS_ref, muS_ref,
-                   SigT_ref, muT_ref, Fbar_ref, Qbar_ref, Xbar_ref, xTbar_ref,
-                   Sbar_scr, mbar_scr, *, j, d, T, tc, eps):
+def _ll_bwd_kernel(F_ref, X_ref, w_ref, SigS_ref, muS_ref, SigT_ref, muT_ref,
+                   Fbar_ref, Qbar_ref, Xbar_ref, *, j, d, T, eps):
     """Reverse-mode recursion of :func:`_ll_fwd_kernel`.
 
     Also emits the DATA cotangent ``Xbar`` (``e = x_t - mu[:d]`` routes
@@ -280,7 +250,7 @@ def _ll_bwd_kernel(F_ref, Q_ref, X_ref, xT_ref, w_ref, SigS_ref, muS_ref,
     on the fused path too.
 
     Hand-derived adjoints; notation as in the forward docstring, with
-    ``w`` the per-lane output cotangent (d ll).  For each step t (reverse):
+    ``w`` the per-trial output cotangent (d ll).  For each step t (reverse):
 
         Sbar' <- sym(Sbar')                       [Sigma' was symmetrized]
         Qbar_t = Sbar'
@@ -297,54 +267,42 @@ def _ll_bwd_kernel(F_ref, Q_ref, X_ref, xT_ref, w_ref, SigS_ref, muS_ref,
         carry (Sigmabar, mubar)
 
     The final-score adjoint seeds the carry at t = T; at t = 0 the carry's
-    Sigma-cotangent is folded into ``Qbar_0`` (Sigma_0 = Q_0).
+    Sigma-cotangent is folded into ``Qbar_0`` (Sigma_0 = Q_0).  Every
+    cotangent is per trial (it carries ``w`` and the data); the wrapper sums
+    ``Fbar``/``Qbar`` over trials.
     """
-    c = pl.program_id(1)
-    n_chunks = pl.num_programs(1)
+    w = w_ref[...]
+    zero = jnp.zeros_like(w)
 
-    @pl.when(c == 0)
-    def _():
-        # seed: adjoint of the final score on (Sigma_T, mu_T)
-        w = w_ref[0]
-        Sigma = _read_t(SigT_ref, 0, j, j)
-        mu = _read_t(muT_ref, 0, j, 1)
-        S = _block(Sigma, d, d)
-        Sinv, _ = _sym_inv_det(S, eps)
-        xT = _mat([xT_ref[0, k] for k in range(d)], d, 1)
-        e = _sub(xT, _block(mu, d, 1))
-        Se = _matmul(Sinv, e)
-
-        # ebar = -w Sinv e ; mubar[:d] = -ebar = w Sinv e ; xTbar = ebar
-        for i in range(j):
-            mbar_scr[i] = w * _idx(Se, i, 0) if i < d \
-                else _zeros_like_tile(w)
-        for i in range(d):
-            xTbar_ref[0, i] = -w * _idx(Se, i, 0)
-        # Sinvbar = -(w/2) e e^T ; Sbar = -(w/2) Sinv - Sinv Sinvbar Sinv
-        #         = -(w/2) Sinv + (w/2) (Sinv e)(Sinv e)^T
-        Sbar = [0.5 * w * (_idx(Se, r, 0) * _idx(Se, k, 0)
-                           - _idx(Sinv, r, k))
-                for r in range(d) for k in range(d)]
-        for r in range(j):
-            for k in range(j):
-                Sbar_scr[r * j + k] = Sbar[r * d + k] if (r < d and k < d) \
-                    else _zeros_like_tile(w)
+    # seed: adjoint of the final score on (Sigma_T, mu_T)
+    Sigma = _read_s(SigT_ref, 0, j, j)
+    mu = _read_t(muT_ref, 0, j, 1)
+    Sinv, _ = _sym_inv_det(_block(Sigma, d, d), eps)
+    e = _sub(_read_x(X_ref, T, d), _block(mu, d, 1))
+    Se = _matmul(Sinv, e)
+    # ebar = -w Sinv e ; mubar[:d] = -ebar = w Sinv e ; xTbar = ebar
+    _write_t(Xbar_ref, T, _mat([-w * _idx(Se, i, 0) for i in range(d)],
+                               d, 1))
+    mbar0 = tuple(w * _idx(Se, i, 0) if i < d else zero for i in range(j))
+    # Sinvbar = -(w/2) e e^T ; Sbar = -(w/2) Sinv - Sinv Sinvbar Sinv
+    #         = -(w/2) Sinv + (w/2) (Sinv e)(Sinv e)^T
+    sbar0 = tuple(0.5 * w * (_idx(Se, r, 0) * _idx(Se, k, 0)
+                             - _idx(Sinv, r, k))
+                  if (r < d and k < d) else zero
+                  for r in range(j) for k in range(j))
 
     def step(i, carry):
         sbar_rows, mbar_rows = carry
-        tt = tc - 1 - i
-        t_global = (n_chunks - 1 - c) * tc + tt
-        w = w_ref[0]
+        t = T - 1 - i
 
-        Sigma = _read_t(SigS_ref, tt, j, j)
-        mu = _read_t(muS_ref, tt, j, 1)
-        F = _read_t(F_ref, tt, j, j)
+        Sigma = _read_s(SigS_ref, t, j, j)
+        mu = _read_t(muS_ref, t, j, 1)
+        F = _read_s(F_ref, t, j, j)
 
         # recompute forward intermediates
         S = _block(Sigma, d, d)
         Sinv, _ = _sym_inv_det(S, eps)
-        x_t = _mat([X_ref[tt, k] for k in range(d)], d, 1)
-        e = _sub(x_t, _block(mu, d, 1))
+        e = _sub(_read_x(X_ref, t, d), _block(mu, d, 1))
         FS = _matmul(F, Sigma)
         P = _mat([_idx(FS, r, k) for r in range(j) for k in range(d)], j, d)
         J = _matmul(P, Sinv)
@@ -362,7 +320,7 @@ def _ll_bwd_kernel(F_ref, Q_ref, X_ref, xT_ref, w_ref, SigS_ref, muS_ref,
         Sinvbar = _matmul(_transpose(P), Jbar)
         ebar = _matmul(_transpose(J), mbar_n)
 
-        mask = jnp.where(t_global >= 1, 1.0, 0.0)
+        mask = (t >= 1).astype(zero.dtype)
         Se = _matmul(Sinv, e)
         # score adjoints (t >= 1): ebar -= w Sinv e;
         # Sinvbar -= (w/2) e e^T;  Sbar gets -(w/2) Sinv (logdet term)
@@ -381,9 +339,9 @@ def _ll_bwd_kernel(F_ref, Q_ref, X_ref, xT_ref, w_ref, SigS_ref, muS_ref,
 
         # data cotangent: xbar_t = ebar (+ mubar_0[:d] at t = 0 via the
         # init mu_0 = [x_0; 0])
-        is_t0 = jnp.where(t_global == 0, 1.0, 0.0)
+        is_t0 = (t == 0).astype(zero.dtype)
         xrows = [(_idx(ebar, r, 0) + is_t0 * mu_rows[r]) for r in range(d)]
-        _write_t(Xbar_ref, tt, _mat(xrows, d, 1))
+        _write_t(Xbar_ref, t, _mat(xrows, d, 1))
 
         # FSbar[:, :d] += Pbar
         fs_rows = list(FSbar[0])
@@ -406,62 +364,38 @@ def _ll_bwd_kernel(F_ref, Q_ref, X_ref, xT_ref, w_ref, SigS_ref, muS_ref,
         # t = 0: Sigma_0 = Q_0, so the carry cotangent folds into Qbar_0
         Qbar = _add(Qbar, _scale(_sym(Sigmabar), is_t0))
 
-        _write_t(Fbar_ref, tt, Fbar)
-        _write_t(Qbar_ref, tt, Qbar)
+        _write_t(Fbar_ref, t, Fbar)
+        _write_t(Qbar_ref, t, Qbar)
         return (tuple(Sigmabar[0]), tuple(mubar[0]))
 
-    carry0 = (tuple(_read_scr(Sbar_scr, j, j)[0]),
-              tuple(_read_scr(mbar_scr, j, 1)[0]))
-    sbar_f, mbar_f = jax.lax.fori_loop(0, tc, step, carry0)
-    _write_scr(Sbar_scr, _mat(list(sbar_f), j, j))
-    _write_scr(mbar_scr, _mat(list(mbar_f), j, 1))
+    jax.lax.fori_loop(0, T, step, (sbar0, mbar0))
 
 
 # --- host-side wrappers ---
 
 
-def _pick_chunk(T: int, per_step_tiles: int, budget_bytes: int = 2 << 20):
-    """Largest divisor of T whose chunk fits the VMEM streaming budget."""
-    tile_bytes = SUB * LANE * 4
-    tc = max(1, min(T, budget_bytes // (per_step_tiles * tile_bytes)))
-    while T % tc:
-        tc -= 1
-    return tc
-
-
-def _lanes_layout(P: int, n: int):
-    lanes = P * n
-    n_pblocks = -(-lanes // BLOCK)
-    return lanes, n_pblocks, n_pblocks * BLOCK
-
-
-def _rows_t(x, T, r, lanes, Lp):
-    """(P, T, a, b)->(T, a*b, Lp/LANE, LANE) or (lanes, T, a, b) likewise."""
-    flat = x.reshape(-1, T, r)          # (lanes, T, r)
-    flat = jnp.moveaxis(flat, 0, -1)    # (T, r, lanes)
-    if Lp != flat.shape[-1]:
-        flat = jnp.pad(flat, ((0, 0), (0, 0), (0, Lp - flat.shape[-1])),
-                       mode="edge")
-    return flat.reshape(T, r, Lp // LANE, LANE)
-
-
-def _rows_c(x, r, Lp):
-    """(lanes, r) -> (1, r, Lp/LANE, LANE) constant-in-time input."""
-    flat = jnp.moveaxis(x.reshape(-1, r), 0, -1)
-    if Lp != flat.shape[-1]:
-        flat = jnp.pad(flat, ((0, 0), (0, Lp - flat.shape[-1])), mode="edge")
-    return flat.reshape(1, r, Lp // LANE, LANE)
-
-
 def fused_ll_available(j: int, d: int, dtype) -> bool:
-    """Kernel scope: covers every dim=1 tracking model (j <= 5, d <= 2) and
-    the dim=2 family (SubjectiveActor dim=2: j = 10, d = 4); the deep
-    delay-register models (j ~ 26-65) fall back to the XLA scan."""
-    return j <= 12 and d <= 4 and dtype == jnp.float32
+    """Kernel scope: the dim=1 tracking models (BoundedActor j = 4,
+    SubjectiveActor j = 5).  The kernels unroll ~j^3 operations per step:
+    at j = 5 they compile in seconds, while at j = 8 the GPU compile ran
+    past minutes (PERF.md), so larger joint states (the dim=2 family,
+    delay registers) run the XLA scan."""
+    return j <= 5 and d <= 4 and dtype == jnp.float32
 
 
-@functools.partial(jax.jit, static_argnames=())
-def _ll_fwd_call(F, Q, X):
+def _trial_lanes(X, trials):
+    """(P, n, T+1, d) -> (P, T+1, d, Np): trials last, edge-padded to a
+    whole number of lane blocks."""
+    n = X.shape[1]
+    Np = -(-n // trials) * trials
+    Xl = jnp.moveaxis(X, 1, -1)
+    if Np != n:
+        Xl = jnp.pad(Xl, ((0, 0), (0, 0), (0, 0), (0, Np - n)), mode="edge")
+    return Xl
+
+
+@functools.partial(jax.jit, static_argnames=("interpret", "trials"))
+def _ll_fwd_call(F, Q, X, interpret=False, trials=TRIALS):
     """Run the forward kernel.
 
     Args:
@@ -472,161 +406,89 @@ def _ll_fwd_call(F, Q, X):
         ``(ll (P, n), stores)`` where stores feed the backward kernel.
     """
     P, T, j, _ = F.shape
-    n = X.shape[1]
-    d = X.shape[-1]
-    lanes, n_pblocks, Lp = _lanes_layout(P, n)
+    n, d = X.shape[1], X.shape[-1]
     dtype = F.dtype
+    Xl = _trial_lanes(X, trials)
+    Np = Xl.shape[-1]
 
-    # duplicate the theta-indexed schedules across each theta's trials
-    Fl = jnp.broadcast_to(F[:, None], (P, n, T, j, j))
-    Ql = jnp.broadcast_to(Q[:, None], (P, n, T, j, j))
-    F_in = _rows_t(Fl, T, j * j, lanes, Lp)
-    Q_in = _rows_t(Ql, T, j * j, lanes, Lp)
-    X_in = _rows_t(X[..., :T, :].reshape(P * n, T, d), T, d, lanes, Lp)
-    xT_in = _rows_c(X[..., T, :].reshape(P * n, d), d, Lp)
+    per_set = lambda *shape: pl.BlockSpec(
+        (None,) + shape, lambda p, b: (p,) + (0,) * len(shape))
+    per_trial = lambda *shape: pl.BlockSpec(
+        (None,) + shape + (trials,),
+        lambda p, b: (p,) + (0,) * len(shape) + (b,))
 
-    tc = _pick_chunk(T, per_step_tiles=2 * j * j + d + (j * j + j))
-    n_chunks = T // tc
-
-    grid = (n_pblocks, n_chunks)
-    interpret = jax.default_backend() != "tpu"
-    compiler_params = None if interpret else pltpu.CompilerParams(
-        dimension_semantics=("arbitrary", "arbitrary"))
-
-    def in_spec_t(r):
-        return pl.BlockSpec((tc, r, SUB, LANE), lambda pb, c: (c, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    def in_spec_const(r):
-        return pl.BlockSpec((1, r, SUB, LANE), lambda pb, c: (0, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    out_ll = pl.BlockSpec((1, SUB, LANE), lambda pb, c: (0, pb, 0),
-                          memory_space=pltpu.VMEM)
-
-    def out_spec_t(r):
-        return pl.BlockSpec((tc, r, SUB, LANE), lambda pb, c: (c, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    def out_spec_const(r):
-        return pl.BlockSpec((1, r, SUB, LANE), lambda pb, c: (0, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    ll, SigS, muS, SigT, muT = pl.pallas_call(
-        functools.partial(_ll_fwd_kernel, j=j, d=d, T=T, tc=tc, eps=1e-12),
-        grid=grid,
-        in_specs=[in_spec_t(j * j), in_spec_t(j * j), in_spec_t(d),
-                  in_spec_const(d)],
-        out_specs=(out_ll, out_spec_t(j * j), out_spec_t(j),
-                   out_spec_const(j * j), out_spec_const(j)),
+    ll, SigS, muS, SigT, muT = pallas_gpu_call(
+        functools.partial(_ll_fwd_kernel, j=j, d=d, T=T, eps=1e-12),
+        grid=(P, Np // trials),
+        in_specs=[per_set(T, j * j), per_set(T, j * j),
+                  per_trial(T + 1, d)],
+        out_specs=(per_trial(), per_set(T, j * j), per_trial(T, j),
+                   per_set(1, j * j), per_trial(1, j)),
         out_shape=(
-            jax.ShapeDtypeStruct((1, Lp // LANE, LANE), dtype),
-            jax.ShapeDtypeStruct((T, j * j, Lp // LANE, LANE), dtype),
-            jax.ShapeDtypeStruct((T, j, Lp // LANE, LANE), dtype),
-            jax.ShapeDtypeStruct((1, j * j, Lp // LANE, LANE), dtype),
-            jax.ShapeDtypeStruct((1, j, Lp // LANE, LANE), dtype),
+            jax.ShapeDtypeStruct((P, Np), dtype),
+            jax.ShapeDtypeStruct((P, T, j * j), dtype),
+            jax.ShapeDtypeStruct((P, T, j, Np), dtype),
+            jax.ShapeDtypeStruct((P, 1, j * j), dtype),
+            jax.ShapeDtypeStruct((P, 1, j, Np), dtype),
         ),
-        scratch_shapes=[
-            pltpu.VMEM((j * j, SUB, LANE), dtype),
-            pltpu.VMEM((j, SUB, LANE), dtype),
-            pltpu.VMEM((4, SUB, LANE), dtype),
-        ],
-        compiler_params=compiler_params,
-        interpret=interpret,
-    )(F_in, Q_in, X_in, xT_in)
-
-    ll_out = ll.reshape(Lp)[:lanes].reshape(P, n)
-    return ll_out, (SigS, muS, SigT, muT, F_in, Q_in, X_in, xT_in)
+        interpret=interpret, num_warps=NUM_WARPS, name="lqg_ll_forward",
+    )(F.reshape(P, T, j * j), Q.reshape(P, T, j * j), Xl)
+    return ll[:, :n], (SigS, muS, SigT, muT, Xl)
 
 
-def _ll_bwd_call(stores, llbar):
-    """Run the adjoint kernel; returns ``(Fbar, Qbar)`` shaped like F."""
-    SigS, muS, SigT, muT, F_in, Q_in, X_in, xT_in = stores
-    P, n = llbar.shape
-    T = F_in.shape[0]
-    j = int(round(math.sqrt(F_in.shape[1])))
-    d = X_in.shape[1]
-    lanes, n_pblocks, Lp = _lanes_layout(P, n)
-    dtype = F_in.dtype
+@functools.partial(jax.jit, static_argnames=("interpret", "trials"))
+def _ll_bwd_call(F, stores, llbar, interpret=False, trials=TRIALS):
+    """Run the adjoint kernel; returns ``(Fbar, Qbar, Xbar)`` with Fbar and
+    Qbar shaped like F (summed over trials) and Xbar like X."""
+    SigS, muS, SigT, muT, Xl = stores
+    P, T, j, _ = F.shape
+    n = llbar.shape[1]
+    d = Xl.shape[2]
+    Np = Xl.shape[-1]
+    dtype = F.dtype
+    w = jnp.pad(llbar, ((0, 0), (0, Np - n)))   # padded trials: zero weight
 
-    w_in = _rows_c(llbar.reshape(lanes, 1), 1, Lp)[:, 0]  # (1, Lp/LANE, LANE)
+    per_set = lambda *shape: pl.BlockSpec(
+        (None,) + shape, lambda p, b: (p,) + (0,) * len(shape))
+    per_trial = lambda *shape: pl.BlockSpec(
+        (None,) + shape + (trials,),
+        lambda p, b: (p,) + (0,) * len(shape) + (b,))
 
-    # 2*d: the X input stream plus the per-step Xbar output stream
-    tc = _pick_chunk(T, per_step_tiles=5 * (j * j) + 2 * j + 2 * d)
-    n_chunks = T // tc
-
-    grid = (n_pblocks, n_chunks)
-    interpret = jax.default_backend() != "tpu"
-    compiler_params = None if interpret else pltpu.CompilerParams(
-        dimension_semantics=("arbitrary", "arbitrary"))
-
-    def spec_rev(r):
-        # chunk c covers time block n_chunks-1-c (reverse streaming)
-        return pl.BlockSpec(
-            (tc, r, SUB, LANE),
-            lambda pb, c, n_chunks=n_chunks: (n_chunks - 1 - c, 0, pb, 0),
-            memory_space=pltpu.VMEM)
-
-    def spec_const(r):
-        return pl.BlockSpec((1, r, SUB, LANE), lambda pb, c: (0, 0, pb, 0),
-                            memory_space=pltpu.VMEM)
-
-    w_spec = pl.BlockSpec((1, SUB, LANE), lambda pb, c: (0, pb, 0),
-                          memory_space=pltpu.VMEM)
-
-    Fbar, Qbar, Xbar, xTbar = pl.pallas_call(
-        functools.partial(_ll_bwd_kernel, j=j, d=d, T=T, tc=tc, eps=1e-12),
-        grid=grid,
-        in_specs=[spec_rev(j * j), spec_rev(j * j), spec_rev(d),
-                  spec_const(d), w_spec, spec_rev(j * j), spec_rev(j),
-                  spec_const(j * j), spec_const(j)],
-        out_specs=(spec_rev(j * j), spec_rev(j * j), spec_rev(d),
-                   spec_const(d)),
+    Fbar, Qbar, Xbar = pallas_gpu_call(
+        functools.partial(_ll_bwd_kernel, j=j, d=d, T=T, eps=1e-12),
+        grid=(P, Np // trials),
+        in_specs=[per_set(T, j * j), per_trial(T + 1, d), per_trial(),
+                  per_set(T, j * j), per_trial(T, j), per_set(1, j * j),
+                  per_trial(1, j)],
+        out_specs=(per_trial(T, j * j), per_trial(T, j * j),
+                   per_trial(T + 1, d)),
         out_shape=(
-            jax.ShapeDtypeStruct((T, j * j, Lp // LANE, LANE), dtype),
-            jax.ShapeDtypeStruct((T, j * j, Lp // LANE, LANE), dtype),
-            jax.ShapeDtypeStruct((T, d, Lp // LANE, LANE), dtype),
-            jax.ShapeDtypeStruct((1, d, Lp // LANE, LANE), dtype),
+            jax.ShapeDtypeStruct((P, T, j * j, Np), dtype),
+            jax.ShapeDtypeStruct((P, T, j * j, Np), dtype),
+            jax.ShapeDtypeStruct((P, T + 1, d, Np), dtype),
         ),
-        scratch_shapes=[
-            pltpu.VMEM((j * j, SUB, LANE), dtype),
-            pltpu.VMEM((j, SUB, LANE), dtype),
-        ],
-        compiler_params=compiler_params,
-        interpret=interpret,
-    )(F_in, Q_in, X_in, xT_in, w_in, SigS, muS, SigT, muT)
+        interpret=interpret, num_warps=NUM_WARPS, name="lqg_ll_adjoint",
+    )(F.reshape(P, T, j * j), Xl, w, SigS, muS, SigT, muT)
 
-    def unrows(x):
-        flat = x.reshape(T, j * j, Lp)[..., :lanes]   # (T, j*j, lanes)
-        out = jnp.moveaxis(flat, -1, 0).reshape(P, n, T, j, j)
-        return out.sum(axis=1)  # sum trial adjoints per parameter set
+    def per_set_sum(x):
+        return x[..., :n].sum(axis=-1).reshape(P, T, j, j)
 
-    def unrows_x(x):
-        # (t, d, Lp/LANE, LANE) -> (P, n, t, d); per-trial, NOT summed
-        t = x.shape[0]
-        flat = x.reshape(t, d, Lp)[..., :lanes]
-        return jnp.moveaxis(flat, -1, 0).reshape(P, n, t, d)
-
-    # (P, n, T+1, d): per-step cotangents for x_0..x_{T-1} then x_T
-    Xbar_full = jnp.concatenate([unrows_x(Xbar), unrows_x(xTbar)], axis=2)
-    return unrows(Fbar), unrows(Qbar), Xbar_full
+    return per_set_sum(Fbar), per_set_sum(Qbar), \
+        jnp.moveaxis(Xbar[..., :n], -1, 1)
 
 
-# --- custom vmap: fold mapped axes into the kernel's P (lane) axis ---
+# --- custom vmap: fold mapped axes into the kernel's P axis ---
 #
 # Under NUTS, chains arrive via jax.vmap over the model potential.  The
-# default pallas batching rule prepends a grid dimension - one serialized
-# kernel instance per chain, each paying the full T-loop latency.  These
-# rules instead fold the vmap axis into the particle axis, so all chains
-# ride the (8, 128) lanes of ONE kernel instance (measured 16 chains:
-# 3.7 ms vs 75 ms per value+grad at T=1000).
+# default pallas batching rule adds a grid dimension per mapped axis; these
+# rules instead fold the vmap axis into the parameter-set axis P, so one
+# launch covers every chain and the wrapper's layout code runs once.
 #
 # custom_vmap cannot be differentiated through, so it sits INSIDE
 # custom_vjp: autodiff splits into fwd/bwd first, then vmap maps each
 # through its folding rule.  Residuals are the honest primal inputs
 # (F, Q, X) - the backward pass re-runs the forward kernel to regenerate
-# the per-step stores (cheap next to an XLA scan chain) rather than
-# threading lane-packed residuals through the batcher.
+# the per-step stores rather than threading them through the batcher.
 
 
 def _fold(axis_size, batched, *args):
@@ -639,61 +501,62 @@ def _fold(axis_size, batched, *args):
     return out
 
 
-def _ll_fwd_ll_only(F, Q, X):
-    return _ll_fwd_call(F, Q, X)[0]
+@functools.lru_cache(maxsize=None)
+def _ll_cv(interpret: bool):
+    """(forward, gradient) custom_vmap pair for one interpret setting."""
+
+    def fwd(F, Q, X):
+        return _ll_fwd_call(F, Q, X, interpret=interpret)[0]
+
+    fwd_cv = jax.custom_batching.custom_vmap(fwd)
+
+    @fwd_cv.def_vmap
+    def _fwd_rule(axis_size, in_batched, F, Q, X):
+        Ff, Qf, Xf = _fold(axis_size, in_batched, F, Q, X)
+        ll = fwd_cv(Ff, Qf, Xf)
+        return ll.reshape((axis_size, -1) + ll.shape[1:]), True
+
+    def grads(F, Q, X, llbar):
+        _, stores = _ll_fwd_call(F, Q, X, interpret=interpret)
+        return _ll_bwd_call(F, stores, llbar, interpret=interpret)
+
+    bwd_cv = jax.custom_batching.custom_vmap(grads)
+
+    @bwd_cv.def_vmap
+    def _bwd_rule(axis_size, in_batched, F, Q, X, llbar):
+        Ff, Qf, Xf, lf = _fold(axis_size, in_batched, F, Q, X, llbar)
+        Fbar, Qbar, Xbar = bwd_cv(Ff, Qf, Xf, lf)
+        unfold = lambda a: a.reshape((axis_size, -1) + a.shape[1:])
+        return (unfold(Fbar), unfold(Qbar), unfold(Xbar)), (True, True, True)
+
+    return fwd_cv, bwd_cv
 
 
-_fwd_cv = jax.custom_batching.custom_vmap(_ll_fwd_ll_only)
-
-
-@_fwd_cv.def_vmap
-def _fwd_cv_rule(axis_size, in_batched, F, Q, X):
-    Ff, Qf, Xf = _fold(axis_size, in_batched, F, Q, X)
-    ll = _fwd_cv(Ff, Qf, Xf)
-    return ll.reshape((axis_size, -1) + ll.shape[1:]), True
-
-
-def _ll_grads(F, Q, X, llbar):
-    _, stores = _ll_fwd_call(F, Q, X)
-    return _ll_bwd_call(stores, llbar)
-
-
-_bwd_cv = jax.custom_batching.custom_vmap(_ll_grads)
-
-
-@_bwd_cv.def_vmap
-def _bwd_cv_rule(axis_size, in_batched, F, Q, X, llbar):
-    Ff, Qf, Xf, lf = _fold(axis_size, in_batched, F, Q, X, llbar)
-    Fbar, Qbar, Xbar = _bwd_cv(Ff, Qf, Xf, lf)
-    unfold = lambda a: a.reshape((axis_size, -1) + a.shape[1:])
-    return (unfold(Fbar), unfold(Qbar), unfold(Xbar)), (True, True, True)
-
-
-@jax.custom_vjp
-def conditioned_log_likelihood_fused(F, Q, X):
-    """Marginalized trajectory log likelihood, fully fused on TPU.
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
+def conditioned_log_likelihood_fused(F, Q, X, interpret=False):
+    """Marginalized trajectory log likelihood, fused into one kernel.
 
     Args:
         F: ``(P, T, j, j)`` joint (state, belief) transition schedules.
         Q: ``(P, T, j, j)`` joint noise covariances ``G G^T``.
         X: ``(P, n, T+1, d)`` observed trajectories (first ``d`` joint dims).
+        interpret: run in the Pallas interpreter instead of compiling.
 
     Returns:
         ``(P, n)`` per-trial log likelihoods of ``X[..., 1:, :]`` - identical
         to :func:`lqg_tpu.ops.gaussian.trial_log_likelihood` on the same
         joint system.  Differentiable (fused analytic adjoint kernel) and
-        vmap-aware (mapped axes fold into the lane batch).
+        vmap-aware (mapped axes fold into the parameter-set axis).
     """
-    return _fwd_cv(F, Q, X)
+    return _ll_cv(interpret)[0](F, Q, X)
 
 
-def _clf_fwd(F, Q, X):
-    return _fwd_cv(F, Q, X), (F, Q, X)
+def _clf_fwd(F, Q, X, interpret):
+    return _ll_cv(interpret)[0](F, Q, X), (F, Q, X)
 
 
-def _clf_bwd(res, llbar):
-    F, Q, X = res
-    return _bwd_cv(F, Q, X, llbar)
+def _clf_bwd(interpret, res, llbar):
+    return _ll_cv(interpret)[1](*res, llbar)
 
 
 conditioned_log_likelihood_fused.defvjp(_clf_fwd, _clf_bwd)

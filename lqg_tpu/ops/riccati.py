@@ -1,7 +1,7 @@
 """Finite-horizon generalized LQR: Riccati backward recursion.
 
 Semantics match reference ``lqg/control/lqr.py:16-42`` (affine cost terms and
-control-state cross term included), with TPU-first differences:
+control-state cross term included), with these differences:
 
 * **Batch-first**: every operation broadcasts over arbitrary leading batch axes
   (parameter particles, conditions, chains).  A vmapped call lowers to the same
@@ -86,8 +86,8 @@ def backward(
     step = partial(_step, eps=eps, regularize=regularize)
     stationary = spec.A.ndim == spec.Qf.ndim
 
-    # full-f32 matmuls: TPU's default matmul precision (bf16 passes)
-    # compounds to percent-level gain error over T=1000 Riccati steps
+    # full-f32 matmuls: reduced-precision (TF32) products compound to
+    # percent-level gain error over T=1000 Riccati steps
     ctx = jax.default_matmul_precision("highest")
     if stationary:
         if horizon is None:

@@ -4,7 +4,7 @@ Greenfield numerics layer with no reference counterpart: the reference runs
 plain covariance recursions in float64 (``jax_enable_x64`` set globally in
 ``lqg/optim.py:9-11``) and guards conditioning with eigenvalue clamps
 (``lqg/control/lqr.py:26-28``, ``lqg/tracking/point_mass.py:130-144``).  On
-TPU the natural compute dtype is float32, where the ``P <- (I - KF) P`` style
+an accelerator the natural compute dtype is float32, where the ``P <- (I - KF) P`` style
 updates lose symmetry/PSD-ness over long horizons.  The array (QR) form
 propagates Cholesky-like factors instead of covariances: every intermediate
 is a product of factors, so covariances stay PSD by construction and the

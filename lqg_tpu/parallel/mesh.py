@@ -3,8 +3,8 @@
 The reference's only notion of multi-device execution is NumPyro chain
 dispatch over host devices (``main.py:8``).  Here the device mesh is a
 first-class object: batch axes of the inference workload (conditions x
-trials x chains/particles) shard over mesh axes, with XLA collectives over
-ICI/DCN.
+trials x chains/particles) shard over mesh axes, with XLA collectives
+between devices (NCCL on GPUs).
 """
 
 from __future__ import annotations

@@ -170,7 +170,7 @@ class FilterElement(NamedTuple):
     ``A, C, J``: ``(..., j, j)`` are data-independent and shared across
     trials; ``b, eta``: ``(..., j, n)`` carry the per-trial data in trailing
     columns, so every composition is a shared ``(j, j)`` solve plus
-    ``(j, j) @ (j, n)`` matmuls - MXU work over the trial batch.
+    ``(j, j) @ (j, n)`` matmuls over the trial batch.
     """
 
     A: jnp.ndarray
@@ -242,8 +242,8 @@ def trial_log_likelihood_assoc(joint, x: jnp.ndarray,
         eta = F^T E^T S^{-1} x_{t+1}.
 
     Sharding the element time axis over a mesh axis makes
-    ``associative_scan`` ride ICI collectives - horizon (sequence)
-    parallelism across chips.
+    ``associative_scan`` ride collectives between devices - horizon
+    (sequence) parallelism across cards.
 
     Args:
         joint: :class:`lqg_tpu.ops.gaussian.JointSystem` (``F (T, j, j)``,

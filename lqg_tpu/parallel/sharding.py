@@ -29,12 +29,14 @@ def sharded_log_likelihood(model_builder: Callable, x, mesh: Mesh,
 
     Returns:
         ``f(params) -> scalar`` - jitted, with trials sharded over ``axis``
-        and the per-shard sums reduced with ``psum`` over ICI.
+        and the per-shard sums reduced with ``psum``.
     """
     x_sharded = shard_batch(jnp.asarray(x), mesh, axis)
 
+    # check_vma=False: the Pallas kernels' outputs carry no varying-axes
+    # annotation, which shard_map's type check would otherwise demand
     @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(), P(axis)), out_specs=P())
+             in_specs=(P(), P(axis)), out_specs=P(), check_vma=False)
     def _ll(params, x_shard):
         system = model_builder(params)
         ll = jnp.sum(system.log_likelihood(x_shard))
@@ -82,8 +84,8 @@ def sequence_parallel_log_likelihood(system, x, mesh: Mesh, axis: str = "sp"):
     the likelihood is evaluated with the associative-scan formulation
     (:func:`lqg_tpu.parallel.pscan.trial_log_likelihood_assoc`), whose
     O(log T) composition tree XLA partitions into per-shard scans plus
-    ICI collectives at shard boundaries.  Use when T is too long for one
-    chip's sequential latency (T ~ 1e4-1e6).
+    collectives at shard boundaries.  Use when T is too long for one
+    card's sequential latency (T ~ 1e4-1e6).
 
     Args:
         system: a :class:`lqg_tpu.system.System`.

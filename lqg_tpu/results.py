@@ -2,13 +2,14 @@
 
 The reference persists posteriors as arviz netcdf (``cpp_data_fit.py:54-55``)
 and CSV summaries (``main.py:80-84``).  This module writes the same artifact
-shapes without the arviz dependency (scipy's netcdf writer + pandas), and
+shapes without the arviz dependency (scipy's netcdf writer + csv), and
 adds checkpoint/resume for long MCMC runs (SURVEY.md section 5.4 - a
 capability the reference lacks).
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 
@@ -52,20 +53,30 @@ def load_netcdf(path: str) -> dict:
     return out
 
 
-def save_summary_csv(path: str, summary_df, true_params: dict | None = None,
+def save_summary_csv(path: str, summary: dict, true_params: dict | None = None,
                      seed=None):
     """Write a parameter-recovery CSV like the reference CLI
-    (``main.py:80-84``)."""
+    (``main.py:80-84``).
+
+    ``summary``: ``{name: {column: value}}`` as from
+    :func:`lqg_tpu.infer.diagnostics.summary`.  Adds a ``true`` column from
+    ``true_params`` and a ``seed`` column; returns the rows written.
+    """
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    df = summary_df.copy()
-    if true_params:
-        for key, val in true_params.items():
-            if key in df.index:
-                df.loc[key, "true"] = float(val)
+    rows = {name: dict(row) for name, row in summary.items()}
+    for key, val in (true_params or {}).items():
+        if key in rows:
+            rows[key]["true"] = float(val)
     if seed is not None:
-        df["seed"] = seed
-    df.to_csv(path)
-    return df
+        for row in rows.values():
+            row["seed"] = seed
+    columns = list(dict.fromkeys(c for row in rows.values() for c in row))
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow([""] + columns)
+        for name, row in rows.items():
+            writer.writerow([name] + [row.get(c, "") for c in columns])
+    return rows
 
 
 def save_mcmc_checkpoint(path: str, mcmc):

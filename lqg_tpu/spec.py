@@ -13,7 +13,7 @@ container (``/root/reference/lqg/spec.py:5-19``): a finite-horizon, generalized
 ``V`` and ``W`` are noise *scale* matrices (Cholesky-factor-like): the process /
 observation noise covariances are ``V V^T`` / ``W W^T``.
 
-TPU-first design notes (differences from the reference):
+Design notes (differences from the reference):
 
 * The spec is a registered JAX pytree (``NamedTuple``), so whole specs flow
   through ``jit`` / ``vmap`` / ``scan`` / shardings without unpacking.  Leading

@@ -3,14 +3,14 @@
 Mirrors the public surface of reference ``lqg/system.py`` (``System``, ``LQG``,
 ``Actor``, ``Dynamics``, dims API, ``simulate`` / ``conditional_*`` /
 ``log_likelihood`` / ``belief_tracking_distribution`` and the distribution
-adapter) on top of the TPU-first kernels in :mod:`lqg_tpu.ops`.
+adapter) on top of the batched recursions in :mod:`lqg_tpu.ops`.
 
 Key architectural differences from the reference:
 
 * ``simulate`` runs ONE scan with all trials batched into the leading axis of
   the state matrices (the reference vmaps a per-trial scan,
   ``system.py:84-135``); each scan step is a set of ``(n, k) @ (k, m)``
-  matmuls - MXU-shaped work.
+  matmuls over the whole trial batch.
 * The likelihood hoists gains and the data-free covariance recursion out of
   the trial batch entirely (the reference recomputes them per trial under
   vmap, ``system.py:157-161``); see :mod:`lqg_tpu.ops.gaussian`.
@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax, random
 
+from lqg_tpu.backend import kernel_route, require_kernel_route
 from lqg_tpu.spec import LQGSpec
 from lqg_tpu.ops import riccati, kalman, gaussian
 from lqg_tpu.ops.linalg import mT
@@ -113,23 +114,24 @@ class System:
     # --- gains ---
     def _default_Sigma0(self) -> jnp.ndarray:
         V0 = self.actor.V[0] if _stacked(self.actor) else self.actor.V
-        return V0 @ mT(V0)
+        with jax.default_matmul_precision("highest"):
+            return V0 @ mT(V0)
 
     def _fused_ok(self) -> bool:
         """Can the fused Pallas gains kernel take this actor spec?
 
-        Requires: TPU backend, unbatched stationary float32 spec within the
-        kernel's dim limits, no control-multiplicative noise, and concretely
-        zero affine/cross cost terms (the kernel ignores ``q, r, P``).
+        Requires: a backend with a compiled kernel route, unbatched
+        stationary float32 spec within the kernel's dim limits, no
+        control-multiplicative noise, and concretely zero affine/cross cost
+        terms (the kernel ignores ``q, r, P``).
         """
-        import jax
         from lqg_tpu.ops.pallas.gains import fused_gains_available
 
-        if _FORCE_SCAN:
+        if _FORCE_SCAN or not kernel_route():
             return False
 
         a = self.actor
-        if (self.control_noise is not None or jax.default_backend() != "tpu"
+        if (self.control_noise is not None
                 or a.A.ndim != 2 or a.A.dtype != jnp.float32
                 or not fused_gains_available(a)):
             return False
@@ -158,9 +160,10 @@ class System:
         vmap at ``system.py:157-161``; here hoisting is explicit).
 
         Args:
-            method: ``"auto"`` (fused Pallas kernel on TPU when the spec is
-                in kernel scope, else scans), ``"fused"`` (force the Pallas
-                kernel, interpreted off-TPU), ``"scan"``, ``"sqrt"``
+            method: ``"auto"`` (fused Pallas kernel where the backend
+                compiles it and the spec is in kernel scope, else scans),
+                ``"fused"`` (force the kernel; raises on a backend without
+                a compiled kernel route), ``"scan"``, ``"sqrt"``
                 (QR array-form recursions, :mod:`lqg_tpu.ops.sqrt` - factors
                 instead of covariances, guaranteed-PSD propagation for
                 extreme conditioning; requires zero affine/cross cost terms),
@@ -168,9 +171,11 @@ class System:
                 :mod:`lqg_tpu.ops.dare`, broadcast across the horizon -
                 O(log) work instead of O(T); exact in the long-horizon
                 interior, approximate near the boundaries).
-                The fused primal is ~100x lower latency per solve; gradients
-                flow through a scan-math VJP either way.
         """
+        with jax.default_matmul_precision("highest"):
+            return self._gains(Sigma0, method)
+
+    def _gains(self, Sigma0, method):
         Sigma0 = self._default_Sigma0() if Sigma0 is None else Sigma0
         if method == "steady":
             from lqg_tpu.ops.dare import steady_state
@@ -198,6 +203,7 @@ class System:
         if method == "fused" or (method == "auto" and self._fused_ok()):
             from lqg_tpu.ops.pallas.gains import gains_fused
 
+            require_kernel_route("System.gains(method='fused')")
             batched = jax.tree_util.tree_map(lambda x: x[None], self.actor)
             L, H, K = gains_fused(batched, Sigma0[None], self.horizon)
             L, H, K = L[:, 0], H[:, 0], K[:, 0]
@@ -272,7 +278,6 @@ class System:
 
         xs = (Tbr(A_d), Tbr(B_d), Tbr(F_d), Tbr(V_d), Tbr(W_d),
               Tbr(A_a), Tbr(B_a), Tbr(F_a), L_t, l_t, K, eps, eta, eps_u)
-        import jax
         with jax.default_matmul_precision("highest"):
             _, (x, x_hat, y, u) = lax.scan(step, (x0, xhat0), xs)
 
@@ -335,42 +340,41 @@ class System:
         """Per-trial log likelihood of ``x[:, 1:]`` given the model.
 
         Fast paths: data-free covariance work once, trials batched into
-        matmuls (see :func:`lqg_tpu.ops.gaussian.trial_log_likelihood`); on
-        TPU the whole conditioned recursion (and its VJP) runs as one fused
-        Pallas kernel (:mod:`lqg_tpu.ops.pallas.likelihood`) - measured
-        ~4x faster than the compiled XLA scan for value+grad at T=1000
-        (docs/perf.md), whose per-step cost is bound by the sequential
-        chain of tiny matrix ops.
+        matmuls (see :func:`lqg_tpu.ops.gaussian.trial_log_likelihood`);
+        where the backend compiles the Pallas kernels, the whole
+        conditioned recursion (and its VJP) runs as one fused kernel
+        (:mod:`lqg_tpu.ops.pallas.likelihood`) instead of a scan whose
+        per-step cost is the sequential chain of tiny matrix ops.
 
         Args:
-            method: ``"auto"`` (fused kernel on TPU when the joint dims fit,
-                else the sequential scan), ``"fused"`` (force the Pallas
-                kernel, interpreted off-TPU), ``"scan"`` (sequential over T,
+            method: ``"auto"`` (fused kernel where the backend compiles it
+                and the joint dims fit, else the sequential scan),
+                ``"fused"`` (force the kernel; raises on a backend without
+                a compiled kernel route), ``"scan"`` (sequential over T,
                 minimal FLOPs), or ``"pscan"`` (associative scan, O(log T)
                 depth - for long horizons and for sharding the time axis
                 over a mesh, see
                 :func:`lqg_tpu.parallel.pscan.trial_log_likelihood_assoc`).
         """
-        d = x.shape[-1]
         self._check_obs(x)
+        with jax.default_matmul_precision("highest"):
+            return self._log_likelihood(x, Sigma0, method)
+
+    def _log_likelihood(self, x, Sigma0, method):
+        d = x.shape[-1]
+        if method not in ("auto", "fused", "scan", "pscan"):
+            raise ValueError(
+                f"method must be auto|fused|scan|pscan, got {method!r}")
+        if method == "fused":
+            require_kernel_route("System.log_likelihood(method='fused')")
         joint = self._joint(Sigma0)
         if method == "auto":
             from lqg_tpu.ops.pallas.likelihood import fused_ll_available
-            from lqg_tpu.ops.pallas.likelihood_blocked import (
-                blocked_ll_available)
 
             j = joint.F.shape[-1]
-            on_tpu = jax.default_backend() == "tpu" and not _FORCE_SCAN
-            if (on_tpu and joint.F.ndim == 3
+            if (not _FORCE_SCAN and kernel_route() and joint.F.ndim == 3
                     and fused_ll_available(j, d, joint.F.dtype)):
                 method = "fused"
-            elif (on_tpu and joint.F.ndim == 3
-                    and blocked_ll_available(j, d, x.shape[0],
-                                             joint.F.dtype)):
-                # large-j models (delay registers: j ~ 26-65) exceed the
-                # per-element-lane kernel's scope; the blocked kernel runs
-                # the recursion as (128, 128) MXU tiles instead
-                method = "blocked"
             else:
                 method = "scan"
         if method == "fused":
@@ -380,21 +384,10 @@ class System:
             Q = joint.G @ mT(joint.G)
             return conditioned_log_likelihood_fused(
                 joint.F[None], Q[None], x[None])[0]
-        if method == "blocked":
-            from lqg_tpu.ops.pallas.likelihood_blocked import (
-                conditioned_log_likelihood_blocked)
-
-            Q = joint.G @ mT(joint.G)
-            return conditioned_log_likelihood_blocked(
-                joint.F[None], Q[None], x[None])[0]
         if method == "pscan":
             from lqg_tpu.parallel.pscan import trial_log_likelihood_assoc
 
             return trial_log_likelihood_assoc(joint, x)
-        if method != "scan":
-            raise ValueError(
-                f"method must be auto|fused|blocked|scan|pscan, "
-                f"got {method!r}")
         kernel = gaussian.conditional_kernel(joint, d)
         return gaussian.trial_log_likelihood(kernel, x)
 

@@ -10,13 +10,13 @@ preconditioning, IAF NeuTra, exact-Hessian Laplace): HMC's accept test
 compares potential differences to O(0.1) precision, so step-size adaptation
 drives steps down to the noise floor and trajectories random-walk.
 
-The TPU-native fix is NOT float64 (emulated on TPU: measured ~1300x slower
-for the flagship potential) but compensated summation at the reduction
-boundaries: chunked pairwise partial sums followed by a Neumaier scan keep
-the effective accumulation precision near float64 while every FLOP stays
-f32.  Combined with a constant baseline shift of the returned value (HMC
-only uses differences), the potential's noise floor drops from ~0.3 to
-~1e-3 nats.
+The fix here keeps every FLOP in f32 and compensates at the reduction
+boundaries instead: chunked pairwise partial sums followed by a Neumaier
+scan keep the effective accumulation precision near float64.  Combined with
+a constant baseline shift of the returned value (HMC only uses
+differences), the potential's noise floor drops from ~0.3 to ~1e-3 nats.
+Whether a float64 potential is cheaper on the GPU, which runs f64
+natively, has not been measured.
 """
 
 from __future__ import annotations
@@ -51,6 +51,8 @@ def kahan_sum(x: jnp.ndarray, axis: int = 0, chunk: int = 16) -> jnp.ndarray:
                           (s - t) + p, (p - t) + s)
         return (t, c), None
 
-    zero = jnp.zeros(parts.shape[1:], dtype=parts.dtype)
+    # zeros_like keeps the summands' varying mesh axes (under shard_map the
+    # carry must vary like the partials it accumulates)
+    zero = jnp.zeros_like(parts[0])
     (s, c), _ = lax.scan(step, (zero, zero), parts)
     return s + c

@@ -3,7 +3,7 @@
 SURVEY.md sections 5.1/5.5: the reference has no tracing/metrics subsystem
 (only ``%timeit`` pedagogy cells in its tutorial notebook); here profiler
 traces and wall-clock timing of the hot solves are first-class.  Use
-:func:`trace` to capture an XLA/TPU profile viewable in TensorBoard or
+:func:`trace` to capture an XLA/device profile viewable in TensorBoard or
 Perfetto, and :func:`timeit` for dispatch-excluded steady-state timing of
 jitted callables.  ``scripts/microbench.py`` drives these across every
 kernel variant.
@@ -20,12 +20,12 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/lqg_tpu_trace"):
+def trace(log_dir: str = "lqg_trace"):
     """Capture a ``jax.profiler`` trace of the enclosed block.
 
     View with TensorBoard (``tensorboard --logdir <dir>``) or upload the
-    ``.trace.json.gz`` to Perfetto.  On TPU this includes per-fusion HLO
-    timing - the ground truth for "is the MXU fed".
+    ``.trace.json.gz`` to Perfetto.  On the GPU this includes per-kernel
+    device timing - the ground truth for where the time goes.
     """
     jax.profiler.start_trace(log_dir)
     try:

@@ -5,8 +5,8 @@ matrices are broadcast to per-timestep stacks, the linear cost terms ``q, r``
 and the cross term ``P`` are zeroed, and the terminal cost is the last slice of
 the running cost.
 
-The TPU-native kernels generally do not *need* stacked specs (they broadcast
-stationary matrices inside the scan, saving HBM bandwidth); stacking exists for
+The kernels generally do not *need* stacked specs (they broadcast
+stationary matrices inside the scan, saving memory bandwidth); stacking exists for
 API parity and for genuinely time-varying problems.
 """
 
@@ -72,8 +72,8 @@ def time_stack_spec(A, B, F, V, W, Q, R, T: int) -> LQGSpec:
 def stationary_spec(A, B, F, V, W, Q, R) -> LQGSpec:
     """Build a *stationary* (no time axis) spec; horizon supplied at solve time.
 
-    This is the preferred TPU layout: kernels broadcast the matrices inside
-    their scans, so no ``(T, n, n)`` stacks ever hit HBM.
+    This is the preferred layout: kernels broadcast the matrices inside
+    their scans, so no ``(T, n, n)`` stacks are ever materialized.
     """
     A, B, F, V, W, Q, R = map(jnp.asarray, (A, B, F, V, W, Q, R))
     state_dim = Q.shape[-1]

@@ -22,17 +22,17 @@ import numpy as np
 
 def main(path):
     from lqg_tpu.io import load_tracking_data
-    from lqg_tpu.infer.diagnostics import summary
+    from lqg_tpu.infer.diagnostics import format_summary, summary
     from lqg_tpu.results import load_netcdf
 
     samples = load_netcdf(path)
-    df = summary(samples)
+    table = summary(samples)
     print(f"== {path} ==")
-    print(df.to_string(float_format=lambda v: f"{v:10.4f}"))
+    print(format_summary(table))
 
-    rhat = df["r_hat"]
-    ess = df["n_eff"]
-    print(f"\nmax r_hat = {rhat.max():.4f}   min ESS = {ess.min():.0f}")
+    rhat = max(row["r_hat"] for row in table.values())
+    ess = min(row["n_eff"] for row in table.values())
+    print(f"\nmax r_hat = {rhat:.4f}   min ESS = {ess:.0f}")
 
     _, bws = load_tracking_data(delay=12, clip=180, subtract_mean=False)
     st = [f"sigma_target_{i}" for i in range(6)]

@@ -29,8 +29,7 @@ def parse_args(args=None):
     parser.add_argument("--nchain", type=int, default=4)
     parser.add_argument("--max-depth", type=int, default=10,
                         help="NUTS maximum tree depth (2^depth leapfrogs "
-                             "worst case; 8 bounds per-step device time on "
-                             "remote-attached TPUs)")
+                             "worst case)")
     parser.add_argument("--model", type=str, default="BoundedActor",
                         help="Model type")
     parser.add_argument("--seed", type=int, default=1,
@@ -43,7 +42,7 @@ def parse_args(args=None):
                         help="Checkpoint the in-flight run here (and resume "
                              "from it if present)")
     parser.add_argument("--platform", type=str, default=None,
-                        help="Force a JAX platform (cpu/tpu)")
+                        help="Force a JAX platform (cpu/cuda)")
     parser.add_argument("--neutra", type=str, default="none",
                         choices=["none", "mvn", "iaf", "laplace"],
                         help="NeuTra preconditioning: fit a variational "
@@ -61,7 +60,7 @@ def parse_args(args=None):
                         help="SVI steps for the NeuTra guide fit")
     parser.add_argument("--max-leapfrogs", type=int, default=None,
                         help="Leapfrog budget per device launch (bounds "
-                             "per-launch device time; default 1024 on TPU)")
+                             "per-launch device time; default unbounded)")
     parser.add_argument("--init", type=str, default="median",
                         choices=["median", "map"],
                         help="Chain initialization: prior median (reference "

@@ -25,12 +25,12 @@ code = nbf.v4.new_code_cell
 CELLS = [
     md("""# lqg_tpu tutorial
 
-Inverse optimal control for continuous psychophysics, TPU-native: model a
+Inverse optimal control for continuous psychophysics, on an accelerator: model a
 human in a tracking experiment as an LQG agent (Kalman filter + LQR), then
 infer the agent's cost and noise parameters from observed trajectories via a
 marginalized closed-form Gaussian likelihood.
 
-This notebook runs unchanged on CPU or TPU (it pins CPU here so it executes
+This notebook runs unchanged on CPU or GPU (it pins CPU here so it executes
 anywhere)."""),
     code("""import os
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
@@ -67,7 +67,7 @@ plt.plot(xs, jax.vmap(f)(xs), label="f")
 plt.plot(xs, jax.vmap(df)(xs), label="f'")
 plt.legend(frameon=False); plt.tight_layout()"""),
     md("""**`jax.jit`** traces a function once and compiles it with XLA. On
-TPU this is where the performance comes from: the whole
+a GPU this is where the performance comes from: the whole
 parameters → gains → likelihood graph below compiles into a single fused
 device program, so Python never touches the inner loop."""),
     code("""import timeit
@@ -210,7 +210,7 @@ ax.legend(frameon=False); fig.tight_layout()"""),
     md("""The OU target hovers around zero instead of wandering off - and
 because `simulate`, `log_likelihood`, `infer` and belief tracking all
 operate on the spec, the custom model gets the full toolchain (including
-the fused TPU kernels) for free.
+the fused GPU kernels) for free.
 
 ## 5. The marginalized likelihood
 
@@ -228,7 +228,7 @@ Cholesky $G_t$; then for each step:
 Each conditional $p(x_{t+1} \\mid x_{1:t})$ is Gaussian in closed form, so
 the log likelihood is a sum of Gaussian scores - and the whole chain
 parameters → matrices → gains → likelihood is one differentiable XLA graph.
-On TPU the entire conditioned recursion (and its hand-derived adjoint) runs
+On the GPU the entire conditioned recursion (and its hand-derived adjoint) runs
 as one fused Pallas kernel; long horizons can instead use an associative
 scan with $O(\\log T)$ depth (`method="pscan"`)."""),
     code("""ll = model.log_likelihood(x)

@@ -4,14 +4,15 @@ Prints a table of steady-state timings (device execution included,
 dispatch pipelining excluded) for:
 
 * gains (Riccati backward + Kalman forward): sequential scan, associative
-  scan, fused Pallas kernel (TPU);
+  scan, fused Pallas kernel (where the backend compiles it: the GPU);
 * marginalized likelihood: sequential kernel path vs parallel-in-time
   associative path, and its gradient;
 * closed-loop simulation.
 
-Run on the TPU (plain ``python scripts/microbench.py``) or CPU
-(``--cpu``).  Use ``--trace DIR`` to also capture a profiler trace of the
-headline solves.  See ``bench.py`` for the single north-star JSON metric.
+Run on the GPU (plain ``python scripts/microbench.py``) or CPU
+(``--cpu``; CPU times say nothing about the card).  Use ``--trace DIR`` to
+also capture a profiler trace of the headline solves.  See ``bench.py``
+for the gains throughput JSON metric.
 """
 
 import argparse
@@ -37,6 +38,10 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from lqg_tpu.backend import kernel_route
+    from lqg_tpu.config import use_compile_cache
+
+    use_compile_cache()
 
     import jax.numpy as jnp
     from jax import random
@@ -82,7 +87,7 @@ def main():
     rows.append(timeit(gb_scan, bspec, iters=iters,
                        name=f"gains scan ({B} particles)"))
 
-    if jax.default_backend() == "tpu":
+    if kernel_route():
         from lqg_tpu.ops.pallas.gains import fused_gains
 
         gb_fused = jax.jit(lambda s: fused_gains(s, bSigma0, horizon=T))

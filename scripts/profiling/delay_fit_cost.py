@@ -1,10 +1,10 @@
 """Measure the NUTS leapfrog cost of the DelayedSubjectiveActor data fit.
 
 Before committing chip-hours to fitting the explicit-delay model to
-data.mat (VERDICT r5 item 1b), measure the actual per-leapfrog quantity:
-value+grad of the hierarchical shared-params potential (6 conditions x 20
-trials x T=1008, j=65 blocked kernel) vmapped over the chain batch - then
-size the chain/transition budget from it.
+data.mat, measure the actual per-leapfrog quantity: value+grad of the
+hierarchical shared-params potential (6 conditions x 20 trials x T=1008,
+j=65, the XLA scan) vmapped over the chain batch - then size the
+chain/transition budget from it.
 
 Usage: python scripts/profiling/delay_fit_cost.py [nchain ...]
 """
@@ -17,10 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 import jax
 
-_cache = os.path.expanduser(f"~/.cache/jax_lqg-{jax.__version__}")
-os.makedirs(_cache, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", _cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from lqg_tpu.config import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 import jax.numpy as jnp
 from jax import random
 

@@ -7,7 +7,7 @@ Measures, at full data scale (6 conditions x 20 trials x T=1008):
    whitened units (quadratic <=> locally Gaussian <=> NUTS should mix),
 3. a short NUTS run in the whitened space: tree depths + lag-1 autocorr.
 
-Findings recorded in BENCH_notes_r5.json / docs/data.md.
+Findings recorded in docs/data.md.
 """
 
 import os

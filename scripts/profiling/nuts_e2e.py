@@ -19,11 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 import jax
 
-_cache = os.path.expanduser(f"~/.cache/jax_lqg-{jax.__version__}")
-os.makedirs(_cache, exist_ok=True)
+from lqg_tpu.config import use_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", _cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+use_compile_cache()
 from jax import random
 
 from lqg_tpu.infer.mcmc import MCMC
@@ -39,8 +37,7 @@ def main():
     ap.add_argument("--trials", type=int, default=20)
     ap.add_argument("--time", type=int, default=720)
     ap.add_argument("--chunk", type=int, default=32,
-                    help="NUTS steps per device launch (long launches trip "
-                         "remote-accelerator watchdogs)")
+                    help="NUTS steps per device launch")
     ap.add_argument("--max-depth", type=int, default=10)
     args = ap.parse_args()
 

@@ -9,8 +9,8 @@ cite a number instead of a claim.
 Measures value and value+grad of the summed negative log likelihood for
   * a small-joint-dim model (BoundedActor, j=6) at T in {1e4, 1e5}
   * the large-joint-dim delay model (DelayedSubjectiveActor, j=65) at T=1e4
-against the sequential scan (and the blocked Pallas kernel where
-available).  Reference workflow context: lqg/system.py:214-233 is the
+against the sequential scan (and the fused kernel where it compiles,
+for the small-j model).  Reference workflow context: lqg/system.py:214-233 is the
 reference's sequential likelihood loop; it has no parallel-in-time path
 at all, so any crossover here is capability beyond the reference.
 
@@ -25,10 +25,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 import jax
 
-_cache = os.path.expanduser(f"~/.cache/jax_lqg-{jax.__version__}")
-os.makedirs(_cache, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", _cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from lqg_tpu.backend import kernel_route  # noqa: E402
+from lqg_tpu.config import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 import jax.numpy as jnp
 from jax import lax, random
 
@@ -113,7 +113,8 @@ def main():
         print(f"BoundedActor (j small), T={T}, trials=4:", flush=True)
         results[name] = bench(
             lambda T, c=6.0: BoundedActor(T=T, sigma_target=c), T, 4,
-            ["scan", "fused", "pscan"], reps=3)
+            ["scan", "pscan"] + (["fused"] if kernel_route() else []),
+            reps=3)
 
     for T in (10_000,):
         name = f"delay_T{T}"
@@ -122,7 +123,7 @@ def main():
         print(f"DelayedSubjectiveActor (j=65), T={T}, trials=2:", flush=True)
         results[name] = bench(
             lambda T, c=1.0: DelayedSubjectiveActor(T=T, c=c), T, 2,
-            ["scan", "blocked", "pscan"], reps=2)
+            ["scan", "pscan"], reps=2)
 
     import json
     print(json.dumps(results))

@@ -6,13 +6,13 @@ sweep of data-parallel mesh sizes.
 
 IMPORTANT: on virtual CPU devices (`--cpu N`) the mesh shares one physical
 host, so the timings validate *correctness and compilation* of the sharded
-program, not hardware scaling - run on a real pod slice for scaling numbers.
-On a single TPU chip the dp=1 row is the per-chip baseline a pod-slice run
-would be compared against.
+program, not hardware scaling - run on real GPUs for scaling numbers.
+On one card the dp=1 row is the per-card baseline a multi-card run is
+compared against.
 
 Usage:
     python scripts/profiling/scaling.py --cpu 8      # virtual 8-device mesh
-    python scripts/profiling/scaling.py              # real devices (TPU)
+    python scripts/profiling/scaling.py              # real devices (GPUs)
 """
 
 import argparse

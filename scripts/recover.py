@@ -33,7 +33,7 @@ def parse_args():
     parser.add_argument("--model", type=str, default="BoundedActor",
                         help="Model type (lqg_tpu.tracking)")
     parser.add_argument("--platform", type=str, default=None,
-                        help="Force a JAX platform (cpu/tpu)")
+                        help="Force a JAX platform (cpu/cuda)")
     parser.add_argument("--plot", action=argparse.BooleanOptionalAction,
                         default=True)
     parser.add_argument("--save", action=argparse.BooleanOptionalAction)

@@ -9,7 +9,7 @@ reference's ``cpp_data_fit.py`` workflow consumes) from known ground-truth
 parameters with a RISING ``sigma_target`` profile, run the identical
 hierarchical fit, and report whether the posterior recovers the trend.
 
-Example (the validation study from VERDICT round 4):
+Example (the validation study in docs/data.md):
     python scripts/recover_at_scale.py --model SubjectiveActor \
         --nsamp 800 --nburnin 600 --nchain 8 --max-depth 8 \
         --max-leapfrogs 4096 --init map --init-jitter 0.02

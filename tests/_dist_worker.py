@@ -101,7 +101,7 @@ def main():
 
 
 def main_2d(proc_id, nproc, outfile):
-    """(chains x dp) 2D mesh spanning 2 processes (VERDICT r4 item 6).
+    """(chains x dp) 2D mesh spanning 2 processes.
 
     The single-process dryrun (``__graft_entry__.dryrun_multichip``) runs
     this layout on virtual devices; here the same program executes with the

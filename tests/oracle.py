@@ -3,7 +3,7 @@
 These are straight-line, per-step NumPy transcriptions of the LQG math - the
 generalized Riccati backward recursion, the Kalman covariance forward pass,
 and the condition/marginalize likelihood recursion - used as the correctness
-anchor for the TPU kernels (SURVEY.md section 4: "parity tests against small
+anchor for the batched kernels (SURVEY.md section 4: "parity tests against small
 NumPy reference implementations").
 """
 

@@ -86,7 +86,7 @@ def test_two_process_sharded_likelihood(tmp_path):
 
 @pytest.mark.slow
 def test_two_process_2d_mesh(tmp_path):
-    """(chains x dp) 2D mesh across 2 processes (VERDICT r4 item 6): each
+    """(chains x dp) 2D mesh across 2 processes: each
     worker forces 2 local CPU devices, so the 4-device global mesh has the
     chains axis spanning the process boundary and dp within-process; the
     sharded training step and chain-sharded NUTS must run and agree."""

@@ -109,7 +109,7 @@ def test_signal_dependent_noise_actor():
 
 def test_vmapped_model_construction():
     """Constructors are pure functions of parameters: vmap batches whole
-    parameter->likelihood graphs (the TPU-first inference layout)."""
+    parameter->likelihood graphs (the batch-first inference layout)."""
     import jax
 
     x = BoundedActor(T=100).simulate(random.PRNGKey(2), n=3)

@@ -1,18 +1,17 @@
-"""Pallas fused-gains kernel parity tests.
+"""Pallas kernel parity tests, in the Pallas interpreter.
 
-Run in interpret mode on the default CPU test backend; under
-``LQG_TPU_TEST_PLATFORM=tpu`` the same tests compile the kernels for the
-real chip.  On-chip f32 numerics (different accumulation order in the
-unrolled tile algebra) sit slightly off the interpret-mode results, so
-gradient/likelihood tolerances widen on TPU.
+Every kernel entry point is called with ``interpret=True``, which runs the
+kernel bodies (tile algebra, in-program time loops, stores at dynamic time
+indices, lane padding) on the CPU; the compiled kernels on the card are
+checked by ``tests/test_gpu.py`` and ``chip_smoke.py``.  Also here: the
+dispatch policy (``auto`` picks the scan where no kernel compiles, forced
+``fused`` raises) and the large-joint-state models, which run the scan.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-
-ON_TPU = jax.default_backend() == "tpu"
 
 from lqg_tpu.models import (BoundedActor, SubjectiveActor,
                             PointMassBoundedActor)
@@ -22,9 +21,9 @@ from lqg_tpu.ops.pallas.gains import fused_gains, fused_gains_available
 from lqg_tpu.ops.linalg import mT
 
 
-def _assert_parity(spec, T, time_chunk=25, atol=2e-5):
+def _assert_parity(spec, T, atol=2e-5, **kw):
     Sigma0 = spec.V @ mT(spec.V)
-    L, H, K = fused_gains(spec, Sigma0, horizon=T, time_chunk=time_chunk)
+    L, H, K = fused_gains(spec, Sigma0, horizon=T, interpret=True, **kw)
     g = riccati.backward(spec, horizon=T, regularize="none")
     K_ref = kalman.forward(spec, Sigma0=Sigma0, horizon=T)
     np.testing.assert_allclose(np.asarray(L), np.asarray(g.L), atol=atol)
@@ -33,7 +32,7 @@ def _assert_parity(spec, T, time_chunk=25, atol=2e-5):
 
 
 def test_bounded_actor_batch():
-    B, T = 1100, 50  # exercises particle padding (1100 < 2*1024)
+    B, T = 1100, 50  # exercises particle padding (1100 = 34*32 + 12)
     cost = jnp.linspace(0.2, 2.0, B)
     spec = jax.vmap(
         lambda c: tracking_spec(1, 1.0, 0.5, 6.0, 3.0, c, 1 / 60))(cost)
@@ -42,12 +41,13 @@ def test_bounded_actor_batch():
 
 
 def test_uneven_time_chunk():
-    """time_chunk not dividing T falls back to the next divisor."""
-    B, T = 64, 30
+    """A prime horizon and a batch that is not a whole number of lane
+    blocks (50 particles in blocks of 16: the last block edge-padded)."""
+    B, T = 50, 31
     cost = jnp.linspace(0.5, 1.5, B)
     spec = jax.vmap(
         lambda c: tracking_spec(1, 1.0, 0.5, 6.0, 3.0, c, 1 / 60))(cost)
-    _assert_parity(spec, T, time_chunk=7)  # falls back to 6
+    _assert_parity(spec, T, lanes=16)
 
 
 @pytest.mark.parametrize("model_cls", [SubjectiveActor,
@@ -57,7 +57,7 @@ def test_model_actor_specs(model_cls):
     m = model_cls(T=40)
     spec = jax.tree.map(lambda a: jnp.stack([a] * 16), m.actor)
     assert fused_gains_available(m.actor)
-    _assert_parity(spec, 40, time_chunk=10, atol=5e-4)
+    _assert_parity(spec, 40, atol=5e-4)
 
 
 def test_availability_gate():
@@ -83,7 +83,7 @@ def test_gains_fused_custom_vjp():
     def loss_fused(c):
         spec = jax.tree.map(lambda a: a[None], build(c))
         Sigma0 = spec.V @ mT(spec.V)
-        L, H, K = gains_fused(spec, Sigma0, T)
+        L, H, K = gains_fused(spec, Sigma0, T, True)
         return jnp.sum(L**2) + jnp.sum(K**2)
 
     def loss_scan(c):
@@ -92,7 +92,7 @@ def test_gains_fused_custom_vjp():
         L, H, K = _scan_gains(spec, Sigma0, T)
         return jnp.sum(L**2) + jnp.sum(K**2)
 
-    rtol = 2e-4 if ON_TPU else 1e-5
+    rtol = 1e-5
     np.testing.assert_allclose(float(loss_fused(0.7)), float(loss_scan(0.7)),
                                rtol=rtol)
     gf = float(jax.grad(loss_fused)(0.7))
@@ -101,17 +101,25 @@ def test_gains_fused_custom_vjp():
 
 
 def test_system_gains_method_fused():
-    """System.gains(method="fused") matches the scan path end to end."""
+    """On the CPU, auto gains take the scan and forced ``fused`` raises
+    naming the backend; the kernel itself (interpreted) matches the scan
+    schedules System returns."""
+    from lqg_tpu.ops.pallas.gains import gains_fused
+
     m = BoundedActor(T=40)
+    assert not m._fused_ok()
+    g_auto, K_auto = m.gains()
     g_scan, K_scan = m.gains(method="scan")
-    g_fused, K_fused = m.gains(method="fused")
-    np.testing.assert_allclose(np.asarray(g_fused.L), np.asarray(g_scan.L),
+    np.testing.assert_array_equal(np.asarray(g_auto.L), np.asarray(g_scan.L))
+    with pytest.raises(ValueError, match="'cpu'"):
+        m.gains(method="fused")
+
+    spec = jax.tree.map(lambda a: a[None], m.actor)
+    L, H, K = gains_fused(spec, m._default_Sigma0()[None], 40, True)
+    np.testing.assert_allclose(np.asarray(L[:, 0]), np.asarray(g_scan.L),
                                atol=2e-5)
-    np.testing.assert_allclose(np.asarray(K_fused), np.asarray(K_scan),
+    np.testing.assert_allclose(np.asarray(K[:, 0]), np.asarray(K_scan),
                                atol=2e-5)
-    assert g_fused.l.shape == g_scan.l.shape
-    # auto dispatch: fused on TPU, scan elsewhere
-    assert m._fused_ok() == ON_TPU
 
 
 # --- fused marginalized-likelihood kernel ---
@@ -128,6 +136,14 @@ def _joint_FQ(model, T):
     g, K = model.gains()
     joint = gaussian.joint_system(model.dynamics, model.actor, g.L, K, T)
     return joint.F, joint.G @ mT(joint.G)
+
+
+def _fused_ll(model, x):
+    """Per-trial log likelihood through the interpreted kernel, from the
+    model's parameters (gains -> joint -> kernel), differentiable."""
+    F, Q = _joint_FQ(model, model.horizon)
+    return conditioned_log_likelihood_fused(F[None], Q[None], x[None],
+                                            True)[0]
 
 
 def _xla_twin_ll(F, Q, x):
@@ -172,7 +188,7 @@ def test_fused_ll_matches_xla_path():
     m = BoundedActor(T=T)
     x = m.simulate(random.PRNGKey(0), n=n)
     ll_ref = m.log_likelihood(x, method="scan")
-    ll = m.log_likelihood(x, method="fused")
+    ll = _fused_ll(m, x)
     np.testing.assert_allclose(np.asarray(ll), np.asarray(ll_ref),
                                rtol=2e-4, atol=2e-3)
 
@@ -186,24 +202,19 @@ def test_fused_ll_gradient_parity():
     F, Q = _joint_FQ(SubjectiveActor(T=T, subj_vel_noise=1.5), T)
     X = x[None]
 
-    ll = conditioned_log_likelihood_fused(F[None], Q[None], X)
+    ll = conditioned_log_likelihood_fused(F[None], Q[None], X, True)
     ll_ref = _xla_twin_ll(F, Q, x)
     np.testing.assert_allclose(np.asarray(ll[0]), np.asarray(ll_ref),
-                               rtol=2e-3 if ON_TPU else 2e-4,
-                               atol=3e-2 if ON_TPU else 2e-3)
+                               rtol=2e-4, atol=2e-3)
 
     gF, gQ = jax.grad(
         lambda F_, Q_: conditioned_log_likelihood_fused(
-            F_[None], Q_[None], X).sum(), argnums=(0, 1))(F, Q)
+            F_[None], Q_[None], X, True).sum(), argnums=(0, 1))(F, Q)
     gF2, gQ2 = jax.grad(lambda F_, Q_: _xla_twin_ll(F_, Q_, x).sum(),
                         argnums=(0, 1))(F, Q)
     sym = lambda a: 0.5 * (a + jnp.swapaxes(a, -1, -2))
-    # this case deliberately stresses a SINGULAR joint covariance; on-chip
-    # f32 (eps-regularized reciprocal inverses vs linalg.inv) can move
-    # isolated raw-cotangent elements by ~8% - the contracted parameter
-    # gradient (what NUTS consumes) stays within 5e-3 on chip, see
-    # test_fused_ll_end_to_end_param_grad
-    atol = 1e-1 if ON_TPU else 1e-3
+    # this case deliberately stresses a SINGULAR joint covariance
+    atol = 1e-3
     np.testing.assert_allclose(np.asarray(gF), np.asarray(gF2),
                                rtol=1e-2, atol=atol)
     np.testing.assert_allclose(np.asarray(sym(gQ)), np.asarray(sym(gQ2)),
@@ -219,14 +230,11 @@ def test_fused_ll_data_gradient():
     F, Q = _joint_FQ(m, T)
 
     gX = jax.grad(lambda x_: conditioned_log_likelihood_fused(
-        F[None], Q[None], x_[None]).sum())(x)
+        F[None], Q[None], x_[None], True).sum())(x)
     gX_ref = jax.grad(lambda x_: _xla_twin_ll(F, Q, x_).sum())(x)
     assert float(jnp.abs(gX).max()) > 0.0
-    # on-chip: closed-form inverses (kernel) vs linalg.inv (twin) give a
-    # few % on isolated small entries of the T-deep f32 recursion
     np.testing.assert_allclose(np.asarray(gX), np.asarray(gX_ref),
-                               rtol=5e-2 if ON_TPU else 1e-2,
-                               atol=2e-2 if ON_TPU else 1e-4)
+                               rtol=1e-2, atol=1e-4)
 
 
 def test_fused_ll_theta_batch_and_vmap():
@@ -239,7 +247,7 @@ def test_fused_ll_theta_batch_and_vmap():
     Q = jnp.stack([q for _, q in FQ])
     X = jnp.broadcast_to(x[None], (P,) + x.shape)
 
-    ll_batch = conditioned_log_likelihood_fused(F, Q, X)
+    ll_batch = conditioned_log_likelihood_fused(F, Q, X, True)
     ll_ref = jnp.stack(
         [BoundedActor(T=T, action_cost=c).log_likelihood(x, method="scan")
          for c in costs])
@@ -247,7 +255,7 @@ def test_fused_ll_theta_batch_and_vmap():
                                rtol=2e-4, atol=2e-3)
 
     ll_vmap = jax.vmap(lambda Fi, Qi: conditioned_log_likelihood_fused(
-        Fi[None], Qi[None], x[None])[0])(F, Q)
+        Fi[None], Qi[None], x[None], True)[0])(F, Q)
     np.testing.assert_allclose(np.asarray(ll_vmap), np.asarray(ll_ref),
                                rtol=2e-4, atol=2e-3)
 
@@ -259,63 +267,65 @@ def test_fused_ll_end_to_end_param_grad():
     T, n = 12, 4
     x = BoundedActor(T=T).simulate(random.PRNGKey(3), n=n)
 
-    def nll(c, method):
-        return -BoundedActor(T=T, action_cost=c).log_likelihood(
-            x, method=method).sum()
+    def nll(c, fused):
+        m = BoundedActor(T=T, action_cost=c)
+        ll = _fused_ll(m, x) if fused else m.log_likelihood(x, method="scan")
+        return -ll.sum()
 
-    g1 = jax.grad(lambda c: nll(c, "fused"))(jnp.float32(0.6))
-    g2 = jax.grad(lambda c: nll(c, "scan"))(jnp.float32(0.6))
+    g1 = jax.grad(lambda c: nll(c, True))(jnp.float32(0.6))
+    g2 = jax.grad(lambda c: nll(c, False))(jnp.float32(0.6))
     np.testing.assert_allclose(float(g1), float(g2), rtol=2e-3, atol=1e-3)
 
 
 def test_fused_ll_availability():
-    assert fused_ll_available(4, 2, jnp.float32)
-    assert fused_ll_available(8, 3, jnp.float32)
-    assert fused_ll_available(10, 4, jnp.float32)       # dim=2 subjective
-    assert not fused_ll_available(13, 2, jnp.float32)   # j too large
+    assert fused_ll_available(4, 2, jnp.float32)        # BoundedActor
+    assert fused_ll_available(5, 2, jnp.float32)        # SubjectiveActor
+    assert not fused_ll_available(8, 3, jnp.float32)    # j too large
+    assert not fused_ll_available(10, 4, jnp.float32)   # dim=2 subjective
     assert not fused_ll_available(4, 5, jnp.float32)    # d too large
     assert not fused_ll_available(4, 2, jnp.float64)    # wrong dtype
 
 
 @pytest.mark.slow
 def test_fused_ll_dim2_scope():
-    """Extended kernel scope: dim=2 models (j=10, d=4) value + grad parity."""
+    """dim=2 models (j=10, d=4) run the scan (outside the kernel's scope);
+    the kernel's arithmetic still holds there: value + grad parity."""
     T = 32
     m = SubjectiveActor(T=T, dim=2)
-    assert fused_ll_available(m.xdim + m.bdim, m.xdim, jnp.float32)
+    assert not fused_ll_available(m.xdim + m.bdim, m.xdim, jnp.float32)
     x = m.simulate(random.PRNGKey(0), n=2)
 
     ll_scan = m.log_likelihood(x, method="scan")
-    ll_fused = m.log_likelihood(x, method="fused")
+    ll_fused = _fused_ll(m, x)
     np.testing.assert_allclose(np.asarray(ll_fused), np.asarray(ll_scan),
-                               rtol=2e-3 if ON_TPU else 2e-4,
-                               atol=3e-2 if ON_TPU else 2e-3)
+                               rtol=2e-4, atol=2e-3)
 
-    def nll(p, method):
+    def nll(p, fused):
         mm = SubjectiveActor(T=T, dim=2, subj_noise=p)
-        return -mm.log_likelihood(x, method=method).sum()
+        ll = (_fused_ll(mm, x) if fused
+              else mm.log_likelihood(x, method="scan"))
+        return -ll.sum()
 
-    g_f = jax.grad(lambda p: nll(p, "fused"))(0.8)
-    g_s = jax.grad(lambda p: nll(p, "scan"))(0.8)
-    np.testing.assert_allclose(float(g_f), float(g_s),
-                               rtol=5e-3 if ON_TPU else 1e-3)
+    g_f = jax.grad(lambda p: nll(p, True))(0.8)
+    g_s = jax.grad(lambda p: nll(p, False))(0.8)
+    np.testing.assert_allclose(float(g_f), float(g_s), rtol=1e-3)
 
 
 
 def test_fused_ll_prime_horizon():
-    """A prime T forces time_chunk=1 (T chunks of one step each - the grid
-    path the T=719 recovery workload exercises); value and grads stay
-    correct."""
-    T, n = 13, 3
+    """A prime T (the T=719 recovery workload's kind of horizon) with more
+    trials than one lane block (40 trials: blocks of 32, the second
+    edge-padded); value and grads stay correct."""
+    T, n = 13, 40
     m = BoundedActor(T=T)
     x = m.simulate(random.PRNGKey(5), n=n)
-    ll_f = m.log_likelihood(x, method="fused")
+    ll_f = _fused_ll(m, x)
     ll_s = m.log_likelihood(x, method="scan")
     np.testing.assert_allclose(np.asarray(ll_f), np.asarray(ll_s),
                                rtol=2e-4, atol=2e-3)
 
-    g_f = jax.grad(lambda c: -BoundedActor(T=T, action_cost=c)
-                   .log_likelihood(x, method="fused").sum())(jnp.float32(0.6))
+    g_f = jax.grad(lambda c: -_fused_ll(BoundedActor(T=T, action_cost=c),
+                                        x).sum())(jnp.float32(0.6))
     g_s = jax.grad(lambda c: -BoundedActor(T=T, action_cost=c)
                    .log_likelihood(x, method="scan").sum())(jnp.float32(0.6))
     np.testing.assert_allclose(float(g_f), float(g_s), rtol=2e-3)
@@ -359,16 +369,12 @@ def test_gains_adjoint_kernel_parity(n, m, p, T):
     ks = random.split(random.PRNGKey(7), 3)
     cots = tuple(random.normal(k, o.shape) * 0.3 for k, o in zip(ks, out))
     sbar_ref, s0bar_ref = vjp(cots)
-    sbar_k, s0bar_k = _gains_adjoint_call(spec, S0, T, *cots)
+    sbar_k, s0bar_k = _gains_adjoint_call(spec, S0, T, *cots, interpret=True)
 
     sym = lambda M: 0.5 * (M + mT(M))
     # f32 accumulation-order noise between the kernel and the scan twin
-    # grows with T; on-chip VPU FMA chains sit further off the scan's
-    # "highest"-precision matmuls (interpret-mode parity is ~1e-7, chip
-    # deltas reach ~2e-3 absolute on small Fbar elements at T=25 - checked
-    # not systematic: the end-to-end parameter-gradient test holds 5e-3)
-    tol = dict(rtol=5e-3, atol=5e-3) if ON_TPU else dict(rtol=1e-3,
-                                                         atol=1e-4)
+    # grows with T
+    tol = dict(rtol=1e-3, atol=1e-4)
     for fld in ["A", "B", "R", "F", "V", "W"]:
         np.testing.assert_allclose(
             np.asarray(getattr(sbar_k, fld)),
@@ -384,42 +390,37 @@ def test_gains_adjoint_kernel_parity(n, m, p, T):
 
 def test_gains_kernel_vjp_end_to_end():
     """jax.grad through a likelihood using the fused gains primal + the
-    analytic adjoint kernel matches the scan-twin VJP, single and
-    vmapped (the custom_vmap fold on the backward path)."""
-    import lqg_tpu.ops.pallas.gains as pg
-    import lqg_tpu.system as sysm
+    analytic adjoint kernel matches differentiating the scan gains, single
+    and vmapped (the custom_vmap fold on the backward path)."""
+    from lqg_tpu.ops.pallas.gains import gains_fused, _scan_gains
 
     m0 = BoundedActor(T=60)
     x = m0.simulate(random.PRNGKey(0), n=4)
 
-    def loss(u):
+    def loss(u, kernel):
         ac, av = u
         m = BoundedActor(T=60, action_cost=ac, action_variability=av)
-        return jnp.sum(m.log_likelihood(x))
+        spec = jax.tree.map(lambda a: a[None], m.actor)
+        S0 = m._default_Sigma0()[None]
+        if kernel:
+            L, _, K = gains_fused(spec, S0, 60, True)
+        else:
+            L, _, K = _scan_gains(spec, S0, 60)
+        joint = gaussian.joint_system(m.dynamics, m.actor, L[:, 0], K[:, 0],
+                                      60)
+        return jnp.sum(gaussian.trial_log_likelihood(
+            gaussian.conditional_kernel(joint, 2), x))
 
-    orig_ok = sysm.System._fused_ok
-    orig_m = pg.GAINS_VJP_METHOD
-    try:
-        sysm.System._fused_ok = lambda self: True  # engage kernel off-TPU
-        pg.GAINS_VJP_METHOD = "kernel"
-        u = jnp.array([1.0, 0.5], jnp.float32)
-        v_k, g_k = jax.value_and_grad(loss)(u)
-        pg.GAINS_VJP_METHOD = "scan"
-        v_s, g_s = jax.value_and_grad(loss)(u)
-        np.testing.assert_allclose(float(v_k), float(v_s), rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(g_k), np.asarray(g_s),
-                                   rtol=5e-3 if ON_TPU else 5e-4)
+    u = jnp.array([1.0, 0.5], jnp.float32)
+    v_k, g_k = jax.value_and_grad(lambda u: loss(u, True))(u)
+    v_s, g_s = jax.value_and_grad(lambda u: loss(u, False))(u)
+    np.testing.assert_allclose(float(v_k), float(v_s), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(g_k), np.asarray(g_s), rtol=5e-4)
 
-        us = jnp.stack([u, jnp.array([0.8, 0.6])]).astype(jnp.float32)
-        pg.GAINS_VJP_METHOD = "kernel"
-        _, gb_k = jax.vmap(jax.value_and_grad(loss))(us)
-        pg.GAINS_VJP_METHOD = "scan"
-        _, gb_s = jax.vmap(jax.value_and_grad(loss))(us)
-        np.testing.assert_allclose(np.asarray(gb_k), np.asarray(gb_s),
-                                   rtol=5e-3 if ON_TPU else 5e-4)
-    finally:
-        sysm.System._fused_ok = orig_ok
-        pg.GAINS_VJP_METHOD = orig_m
+    us = jnp.stack([u, jnp.array([0.8, 0.6])]).astype(jnp.float32)
+    _, gb_k = jax.vmap(jax.value_and_grad(lambda u: loss(u, True)))(us)
+    _, gb_s = jax.vmap(jax.value_and_grad(lambda u: loss(u, False)))(us)
+    np.testing.assert_allclose(np.asarray(gb_k), np.asarray(gb_s), rtol=5e-4)
 
 
 def test_fused_ok_inside_trace():
@@ -450,70 +451,74 @@ def test_fused_ok_inside_trace():
     assert hits[-1], "cost terms lost their concrete-zero encoding in-trace"
 
 
-# --- blocked (MXU-tile) large-j likelihood kernel ---
+def test_fused_ll_requires_kernel_route():
+    """On the CPU, auto likelihood takes the scan and forced ``fused``
+    raises naming the backend; an unknown method raises too."""
+    m = BoundedActor(T=10)
+    x = m.simulate(random.PRNGKey(6), n=2)
+    np.testing.assert_array_equal(
+        np.asarray(m.log_likelihood(x)),
+        np.asarray(m.log_likelihood(x, method="scan")))
+    with pytest.raises(ValueError, match="'cpu'"):
+        m.log_likelihood(x, method="fused")
+    with pytest.raises(ValueError, match="method must be"):
+        m.log_likelihood(x, method="bogus")
 
 
-@pytest.mark.parametrize("delay,T,n,dim", [
-    (None, 24, 3, 1),           # DelayedSubjectiveActor (delay 12): j = 65
-    (4, 13, 2, 1),              # prime T (tc fallback), j = 25
-    (4, 16, 2, 2),              # dim = 2: j = 50, observed d = 4
+@pytest.mark.parametrize("backend,expected", [("gpu", True), ("cpu", False),
+                                              ("rocm", None)])
+def test_kernel_route_policy(monkeypatch, backend, expected):
+    """One policy: kernels compile on the GPU, the CPU runs the scans, any
+    other backend is an error rather than a silent fallback."""
+    from lqg_tpu import backend as be
+
+    monkeypatch.setattr(be.jax, "default_backend", lambda: backend)
+    if expected is None:
+        with pytest.raises(RuntimeError, match="rocm"):
+            be.kernel_route()
+    else:
+        assert be.kernel_route() is expected
+
+
+# --- large joint states (delay registers): the scan, against the oracle ---
+
+
+@pytest.mark.parametrize("delay,dim", [
+    (4, 1),        # TemporalDelayModel(SubjectiveActor), j = 25
+    (4, 2),        # dim = 2: j = 50, observed d = 4
+    (None, 1),     # DelayedSubjectiveActor (delay 12): j = 65
 ])
-def test_blocked_ll_parity(delay, T, n, dim):
-    """The blocked kernel matches the sequential scan for delay models
-    (j = 25-65), value and (twin) gradient."""
+def test_delay_model_ll_vs_oracle(delay, dim, x64):
+    """Delay-register models (beyond the kernel's joint-dim scope) run the
+    scan likelihood, which matches the NumPy float64 oracle."""
+    import oracle
     from lqg_tpu.models.delay import (DelayedSubjectiveActor,
                                       TemporalDelayModel)
-    from lqg_tpu.ops.pallas.likelihood_blocked import (
-        _blocked_ll_call, conditioned_log_likelihood_blocked)
 
+    T, n = 15, 2
     if delay is None:
         m = DelayedSubjectiveActor(T=T)
     else:
         m = TemporalDelayModel(SubjectiveActor(T=T, dim=dim), delay=delay)
     joint = m._joint()
+    j = joint.F.shape[-1]
+    assert j == {(4, 1): 25, (4, 2): 50, (None, 1): 65}[(delay, dim)]
+    assert not fused_ll_available(j, 2 * dim, jnp.float32)
     x = m.simulate(random.PRNGKey(0), n=n)[..., :2 * dim]
-    F = joint.F[None]
-    Q = (joint.G @ mT(joint.G))[None]
-    X = x[None]
 
-    ll_ref = m.log_likelihood(x, method="scan")
-    ll_blk = _blocked_ll_call(F, Q, X)[0]
-    np.testing.assert_allclose(np.asarray(ll_blk), np.asarray(ll_ref),
-                               rtol=2e-3, atol=0.2)
-
-    # analytic-adjoint cotangents vs the scan twin's VJP.  The Q cotangent
-    # is compared in the symmetric gauge: Q = G G^T lives on the symmetric
-    # manifold and both implementations emit a representative whose
-    # asymmetric part is arbitrary (the kernel emits sym(B); the twin's
-    # Sigma0 = Q[0] path leaks an asymmetric t=0 part).
-    from lqg_tpu.ops.pallas.likelihood_blocked import _scan_twin
-
-    def loss_blocked(FQX):
-        return jnp.sum(conditioned_log_likelihood_blocked(*FQX))
-
-    def loss_scan(FQX):
-        return jnp.sum(_scan_twin(*FQX))
-
-    g_b = jax.grad(loss_blocked)((F, Q, X))
-    g_s = jax.grad(loss_scan)((F, Q, X))
-    sym = lambda a: 0.5 * (a + np.swapaxes(a, -1, -2))
-    for name, a, b in zip("FQX", g_b, g_s):
-        a, b = np.asarray(a), np.asarray(b)
-        if name == "Q":
-            a, b = sym(a), sym(b)
-        scale = max(np.abs(b).max(), 1e-6)
-        np.testing.assert_allclose(a / scale, b / scale, rtol=2e-4,
-                                   atol=2e-5,
-                                   err_msg=f"cotangent of {name}")
+    ll = m.log_likelihood(x)
+    ll_ref = np.array([oracle.log_likelihood(np.asarray(joint.F),
+                                             np.asarray(joint.G),
+                                             np.asarray(x[i]))
+                       for i in range(n)])
+    np.testing.assert_allclose(np.asarray(ll), ll_ref, rtol=1e-7)
 
 
-def test_blocked_ll_system_dispatch():
-    """System.log_likelihood(method='blocked') equals the scan path."""
-
+def test_blocked_method_removed():
+    """The large-j blocked kernel is gone; asking for it raises."""
     from lqg_tpu.models.delay import TemporalDelayModel
+
     m = TemporalDelayModel(SubjectiveActor(T=20), delay=6)
     x = m.simulate(random.PRNGKey(1), n=2)[..., :2]
-    ll_b = m.log_likelihood(x, method="blocked")
-    ll_s = m.log_likelihood(x, method="scan")
-    np.testing.assert_allclose(np.asarray(ll_b), np.asarray(ll_s),
-                               rtol=2e-3, atol=0.2)
+    with pytest.raises(ValueError, match="method must be"):
+        m.log_likelihood(x, method="blocked")
